@@ -1,7 +1,7 @@
 """Simulation configuration.
 
 Mirrors the reference's Unity-Inspector parameter surface
-(/root/reference/Assets/Scripts/FluidSim.cs:12-110) as a frozen, hashable
+(the reference's Assets/Scripts/FluidSim.cs:12-110) as a frozen, hashable
 dataclass so a ``SimConfig`` can be passed to ``jax.jit`` as a static
 argument.  Ranges from the reference's ``[Range]`` attributes are enforced in
 ``validate()``; the auto-adjust rule (FluidSim.cs:216-222, 554-556) lives in
@@ -87,8 +87,8 @@ class SimConfig:
     # The 3D solver defaults to the standard single post-advection
     # projection; set True for the reference-style double projection.
     double_project: bool = False
-    # 3D advection formulation: 0 = exact 8-tap trilinear gather (slow on
-    # TPU), K>0 = windowed hat-weight sum over static shifts — identical to
+    # 3D advection formulation: 0 = exact 8-tap trilinear gather,
+    # K>0 = windowed hat-weight sum over static shifts — identical to
     # the gather while |displacement| < K cells, with displacement clamped
     # to K (a CFL limiter).  See ops/advect.py.
     advect_window: int = 0
@@ -176,27 +176,6 @@ class SimConfig:
 
     # -- numerics (new; the reference is float32-only) ------------------
     dtype: str = "float32"
-    # In-VMEM dtype of the resident pressure solve's iterate/rhs volumes
-    # ("float32" or "bfloat16").  The 60-sweep loop is bound by VMEM
-    # operand bandwidth, so "bfloat16" halves its cost while all sweep
-    # arithmetic stays f32 (operands upcast after each read).  Accuracy:
-    # the ~1e-3-relative iterate rounding is the same order as the
-    # truncation the fixed 60-iteration Jacobi leaves anyway (measured —
-    # see pallas/resident.py and docs/KERNELS.md).  Applies only where
-    # the resident kernel dispatches; other paths stay f32.
-    solve_dtype: str = "float32"
-    # Composite sweep blocking for the resident pressure solve: T ≥ 2
-    # runs T Jacobi iterations per VMEM pass (the hoisted chain
-    # p_T = X + a^T·(C·N)-chain(p) with the loop-invariant X precomputed
-    # and the wall-adjacent planes recomputed bitwise-sequentially —
-    # pallas/resident._solve_loop) — same iteration count and per-pass
-    # vector-op count as T single sweeps, ~T× less of the VMEM operand
-    # traffic that bounds the 60-sweep loop.  f32-reassociation class
-    # accuracy (~1e-7 relative, tests/test_pallas_interpret.py); applies
-    # only where the resident f32-storage solve dispatches (obstacle
-    # masks and bf16 solve buffers compose; T ≥ 3 needs grid ≥ 4·T).
-    # 1 = sequential sweeps (default until measured on-chip).
-    jacobi_sweep_block: int = 1
     # 3D advection scheme: "semi_lagrangian" (the reference's first-order
     # scheme) or "maccormack" (second-order BFECC-style with a
     # monotonicity limiter — less numerical diffusion, no reference
@@ -209,64 +188,6 @@ class SimConfig:
     # projection (ops/fft_poisson.py) — obstacle-free closed-box scenes
     # only, removes divergence to machine precision in one shot.
     pressure_solver: str = "jacobi"
-    # Hot-kernel backend for the 3D solver: "auto" uses the Pallas
-    # VMEM-blocked kernels (pallas/) on a real TPU when the grid is
-    # compatible (N lane-aligned, no obstacles for the Jacobi kernel) and
-    # falls back to the fused-XLA ops otherwise; "xla" forces the XLA
-    # path (the correctness oracle); "pallas" asserts the kernels are
-    # usable.
-    kernel_backend: str = "auto"
-    # Fuse the density advection into the resident projection kernel
-    # (pallas/resident.project_advect_density_3d_resident): the density
-    # backtraces through the projected velocity while it is still in
-    # VMEM, saving the advect's full HBM velocity read and one dispatch.
-    # Bitwise-equal to the unfused composition; applies on the
-    # resident-Pallas path with advection_scheme="substep" (static
-    # obstacle masks fold in as coefficient volumes; velocity damping
-    # folds in as the exact post-mirror storage-dtype multiply); other
-    # configs silently keep the unfused kernels.
-    fuse_project_advect: bool = False
-    # With fuse_project_advect, additionally pull the velocity
-    # SELF-advection into the same kernel — the whole hot step (advect →
-    # project → density advect) becomes ONE grid-less sequential-phase
-    # program (pallas/resident.full_step_3d_resident): the advected
-    # velocity lands directly in the projection's resident VMEM volume,
-    # never round-tripping HBM (~50 MB/step saved at 128³ f32).
-    # Bitwise-equal to the unfused composition; same gates as
-    # fuse_project_advect.  Off by default until measured on-chip.
-    fuse_self_advect: bool = False
-    # Fold the buoyancy/gravity body force into the velocity
-    # self-advection kernel's window loads (pallas/advect.py ``buoy``):
-    # the standalone XLA force pass — a full velocity read+write per
-    # step that nothing overlaps (measured ~26 µs at 128³, r4) — is
-    # replaced by one density window stream inside the kernel.  Exact
-    # up to XLA FMA contraction (≤1 ulp on the force fused-multiply-add;
-    # contraction clustering differs between program shapes, so even
-    # two jitted runs of the unfolded composition can differ by the
-    # same amount) vs ``advect(buoyancy_force(vel), …)``.  Applies on
-    # the resident-Pallas substep path with f32 fields, no obstacles,
-    # no viscosity/vorticity/pre-projection between the force and the
-    # advection (models/stable3d.py gating); inert elsewhere.
-    fuse_buoyancy: bool = True
-    # Fold the main emitter's density add into the kernels' density
-    # window loads (the buoy window of the self-advect kernel + the
-    # fused projection's density phase), skipping the standalone
-    # full-grid XLA add.  The in-window falloff math is gated per
-    # window on ball overlap (``pl.when`` — ungated it measured 15
-    # µs/step slower than the pass it replaces).  Bitwise the composed
-    # step (measured: 1000-step max diff 0.0 on-chip).  Gates as
-    # ``models.stable3d.emitter_folds``; callers must then skip
-    # ``apply_custom_source`` and pass the ``src`` operand.
-    # OFF by default — measured a LOSS in the full bench harness
-    # (BENCH_r04: fold on 949.64 vs off 1000.76 steps/s; the quick A/B
-    # that motivated the gate did not survive the 3-trial measurement):
-    # the per-window overlap predicate + the hit windows' iota/sqrt
-    # falloff math cost more VPU time inside the serialized kernel
-    # stream than the ~30 µs standalone XLA add they replace, which the
-    # scan can overlap with kernel DMA.  Kept as an opt-in (bench.py
-    # measures it as the ``src_fold`` tripwire) — bitwise-equal, so
-    # re-promotion is a one-line flip if a future toolchain wins it.
-    fuse_emitter: bool = False
 
     # ------------------------------------------------------------------
 
@@ -328,16 +249,6 @@ class SimConfig:
         if self.pulse_clock not in ("sim", "wall"):
             raise ValueError(
                 f"pulse_clock must be 'sim' or 'wall', got {self.pulse_clock!r}"
-            )
-        if self.solve_dtype not in ("float32", "bfloat16"):
-            raise ValueError(
-                f"solve_dtype must be 'float32' or 'bfloat16', "
-                f"got {self.solve_dtype!r}"
-            )
-        if self.jacobi_sweep_block < 1:
-            raise ValueError(
-                f"jacobi_sweep_block must be >= 1, "
-                f"got {self.jacobi_sweep_block}"
             )
         return self
 
@@ -436,20 +347,7 @@ def preset_plume_64() -> SimConfig:
 
 
 def preset_vortex_128() -> SimConfig:
-    """128³ with vorticity confinement + static solid obstacle.
-
-    solve_dtype="bfloat16" (round 5): REQUIRED for the kernel-grade
-    obstacle projection on today's toolchain — the f32 obstacle resident
-    kernel's register allocator spills 69.75 MB and OOMs the 128 MB VMEM
-    at 128³ (a toolchain regression; the same kernel measured 0.839 ms
-    in round 4), while the bf16-solve arrangement compiles and runs
-    (pallas/resident.resident_obstacle_fits documents the calibrated
-    model; f32 configs now fall back to the XLA solve instead of
-    crashing).  Accuracy bound: same class as the audited bench128
-    promotion (tools/bf16_solve_accuracy.py --preset vortex128).
-    fuse_project_advect stays OFF: the fused obstacle kernel OOMs in
-    BOTH solve dtypes on this toolchain (155.14 / 130.92 MB measured).
-    """
+    """128³ with vorticity confinement + static solid obstacle."""
     return SimConfig(
         ndim=3,
         size=128,
@@ -471,13 +369,10 @@ def preset_vortex_128() -> SimConfig:
         jacobi_iters=20,
         # Substepped advection: 3 sub-advections of dt/3 with a 1-cell
         # window cover the same 3-cell CFL displacement as one K=3
-        # backtrace with 3·27 two-tap terms instead of 343 hat terms;
-        # substeps + obstacle masking all run inside one kernel
-        # (pallas/advect.py; measured steps/s in docs/KERNELS.md).
+        # backtrace with 3·27 two-tap terms instead of 343 hat terms.
         advection_scheme="substep",
         advect_window=1,
         advect_substeps=3,
-        solve_dtype="bfloat16",
     ).validate()
 
 
@@ -512,16 +407,13 @@ def preset_multi_emitter_256() -> SimConfig:
         advection_scheme="substep",
         advect_window=1,
         advect_substeps=2,
-        # Measured on-chip r5: 47.53 fused vs 47.48 unfused steps/s — a
-        # tie at 256³ (the windows stream HBM either way), shipped fused
-        # for the strictly-smaller HBM traffic and one fewer dispatch;
-        # bitwise-equal numerics (r4-VERDICT item 4 A/B).
-        fuse_project_advect=True,
     ).validate()
 
 
 def preset_sharded_512() -> SimConfig:
-    """512³ sharded across v5e-8: halo-exchange Jacobi projection over ICI."""
+    """512³ smoke column: the grid the slab-sharded path
+    (parallel/sharding.py) splits over a device mesh; its ~2.8 GB state
+    also fits one device."""
     return SimConfig(
         ndim=3,
         size=512,
@@ -538,8 +430,8 @@ def preset_sharded_512() -> SimConfig:
         enable_obstacle=False,
         obstacle_position=(0.5, 0.5, 0.5),
         jacobi_iters=20,
-        # K=1 × 2 substeps: lets the y-tiled advect kernel (1 MB planes
-        # exceed full-width VMEM windows at 512³) use the two-tap form.
+        # K=1 × 2 substeps: the two-tap window form covers a 2-cell CFL
+        # displacement.
         advection_scheme="substep",
         advect_window=1,
         advect_substeps=2,
@@ -553,10 +445,10 @@ def preset_bench_128() -> SimConfig:
     Jacobi iterations are spent in the pressure projection (the solver's
     dominant cost); diffusion is disabled as is standard for smoke.
 
-    The scene is CFL-bounded BY CONSTRUCTION (round 4): dissipation
-    sinks give the plume a bounded steady state and dt is set so the
-    measured max per-axis backtrace displacement stays ≤ 1 cell over a
-    3000-step on-chip run (0.736 cells, tools/validate_bench_scene.py).
+    The scene is CFL-bounded by construction: dissipation sinks give the
+    plume a bounded steady state and dt is set so the max per-axis
+    backtrace displacement stays ≤ 1 cell over a 3000-step run
+    (tools/validate_bench_scene.py checks it).
     The advection is therefore the reference's own single unclamped
     semi-Lagrangian backtrace (FluidSim.cs:1523-1576) — exact, never
     window-limited — where the previous scene (dt=0.03, strength 150,
@@ -564,18 +456,6 @@ def preset_bench_128() -> SimConfig:
     that still clamped transport.  Per-step solver work is unchanged
     by scene constants; the single backtrace does strictly less
     advection work than the 2-substep arrangement it replaces.
-
-    solve_dtype="bfloat16" (round 5): the only arrangement consistently
-    ≥1010 steps/s (r4 official 1016.74 vs 1008.63 f32; judge's rerun
-    1010.71 vs 991.66), promoted after the accuracy audit
-    (tools/bf16_solve_accuracy.py, 3000 on-chip steps of this scene):
-    post-projection divergence residual within 1.3% of the f32 solve's
-    at every checkpoint (8.28e-3 vs 8.23e-3 final — the solve quality
-    is set by the 60-iteration truncation, not the iterate rounding),
-    mass drift ≤1.2e-3 relative and bounded, density deltas chaotic
-    trajectory separation (≤1.7% of max density), not bias.  All sweep
-    arithmetic stays f32; only the in-VMEM iterate/rhs volumes narrow.
-    bench.py measures the f32 solve every run as the parity tripwire.
     """
     return SimConfig(
         ndim=3,
@@ -600,19 +480,9 @@ def preset_bench_128() -> SimConfig:
         advect_window=1,
         advect_substeps=1,
         # Stam dissipation sinks (density 1/(1+5·dt), velocity
-        # 1/(1+3·dt) per step) — folded into the projection kernels
-        # (r3), so they cost no extra HBM pass.
+        # 1/(1+3·dt) per step).
         density_dissipation=5.0,
         velocity_damping=3.0,
-        # Measured winner on-chip (r02: 601.06 vs 588.10 steps/s
-        # unfused): the density advection runs as a phase of the
-        # projection kernel.  bench.py keeps measuring the unfused
-        # arrangement as a regression tripwire.  Bitwise-equal numerics;
-        # inert on non-Pallas paths (models/stable3d.py gating).
-        fuse_project_advect=True,
-        # Measured winner two rounds running + accuracy-audited (see
-        # docstring); halves the 60-sweep loop's VMEM operand traffic.
-        solve_dtype="bfloat16",
     ).validate()
 
 

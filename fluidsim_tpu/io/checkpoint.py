@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import warnings
 from typing import Tuple
 
 import jax.numpy as jnp
@@ -63,10 +64,29 @@ def config_to_json(cfg: SimConfig) -> str:
     return json.dumps(d, indent=2)
 
 
+# Fields of configs saved by earlier versions that no longer exist: they
+# only selected hand-written kernels that were removed, so dropping them
+# changes no result.
+REMOVED_FIELDS = (
+    "solve_dtype", "jacobi_sweep_block", "kernel_backend",
+    "fuse_project_advect", "fuse_self_advect", "fuse_buoyancy",
+    "fuse_emitter",
+)
+
+
 def config_from_json(s: str) -> SimConfig:
     from ..config import SourceSpec
 
     d = json.loads(s)
+    dropped = [k for k in REMOVED_FIELDS if k in d]
+    if dropped:
+        warnings.warn(
+            f"ignoring removed config fields {dropped} (they selected "
+            "kernels that no longer exist; results are unchanged)",
+            stacklevel=2,
+        )
+        for k in dropped:
+            del d[k]
     d["obstacle_shape"] = ObstacleShape(d["obstacle_shape"])
     d["color_mode"] = ColorMode(d["color_mode"])
     for key in ("source_position", "obstacle_position", "source_velocity_dir",
@@ -108,7 +128,7 @@ def load_config(path: str) -> SimConfig:
 def save_checkpoint_orbax(path: str, state: FluidState, cfg: SimConfig) -> None:
     """Orbax-backed snapshot — preserves device sharding layout and scales
     to multi-host; the .npz path gathers everything to one host first.
-    Requires orbax-checkpoint (baked into the image); config is stored as
+    Requires the optional orbax-checkpoint package; config is stored as
     JSON alongside.
     """
     import os

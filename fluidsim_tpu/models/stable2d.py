@@ -44,11 +44,11 @@ def velocity_step_2d(vel_x, vel_y, obst, dt: float, visc: float, cfg: SimConfig)
     iters = cfg.jacobi_iters
     vx0 = diffuse_2d(1, vel_x, visc, dt, obst, cfg)
     vy0 = diffuse_2d(2, vel_y, visc, dt, obst, cfg)
-    vx0, vy0, _ = project_2d(vx0, vy0, obst, iters, cfg)
+    vx0, vy0, _ = project_2d(vx0, vy0, obst, iters)
     # One shared backtrace + batched gathers for both components —
     # bitwise equal to the two separate advect_2d calls (FluidSim.cs:710-711).
     vel_x, vel_y = advect_2d_pair(vx0, vy0, vx0, vy0, dt, obst)
-    vel_x, vel_y, pressure = project_2d(vel_x, vel_y, obst, iters, cfg)
+    vel_x, vel_y, pressure = project_2d(vel_x, vel_y, obst, iters)
     return vel_x, vel_y, pressure
 
 

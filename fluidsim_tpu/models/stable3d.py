@@ -1,4 +1,4 @@
-"""TPU-first 3D stable-fluids solver — the product engine.
+"""3D stable-fluids solver — the product engine.
 
 The reference implements Jos Stam's stable fluids on a 2D grid with
 3D-lineage constants (SURVEY.md top note; FluidSim.cs:744, 1581-1582).  This
@@ -38,125 +38,22 @@ from ..ops.project import project_3d
 from ..state import FluidState
 
 
-def _pallas_usable(cfg: SimConfig) -> bool:
-    """Static decision (at trace time) whether the Pallas kernels apply."""
-    if cfg.kernel_backend == "xla":
-        return False
-    from ..pallas.jacobi import pallas_supported
-
-    ok = (
-        pallas_supported()
-        and cfg.current_size % 128 == 0
-        and cfg.dtype in ("float32", "bfloat16")
-        and cfg.advect_window > 0
-    )
-    if cfg.kernel_backend == "pallas" and not ok:
-        raise RuntimeError(
-            "kernel_backend='pallas' but the Pallas kernels are not usable "
-            "here (need a TPU backend, 128-aligned grid, float32/bfloat16 "
-            "fields, and advect_window > 0)"
-        )
-    return ok
-
-
-def emitter_folds(cfg: SimConfig) -> bool:
-    """True when the main emitter's density add folds into the Pallas
-    kernels' density window loads, i.e. the caller should SKIP
-    ``apply_custom_source`` and pass ``src=emitter_fold_operand(cfg, t)``
-    to ``simulate_step_3d`` instead.  Replaces a full-grid density
-    read+write (+ coordinate/falloff math) per step — ~30 µs at 128³
-    that nothing overlaps with.
-
-    Requires: a foldable emitter (``scene.sources.emitter_foldable`` —
-    single 3D density-only source, f32), the fused projection+density-
-    advect arrangement (its windows get the add), no density diffusion
-    (which would read pre-source density), and — when a body force is
-    on — the buoyancy fold (the force must see post-source density).
-    """
-    from ..scene.sources import emitter_foldable
-
-    if not (cfg.fuse_emitter and emitter_foldable(cfg)):
-        return False
-    _, diff, visc = cfg.effective_params()
-    has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
-    return (
-        _pallas_usable(cfg)
-        and cfg.advection_scheme == "substep"
-        and cfg.fuse_project_advect
-        and not cfg.fuse_self_advect
-        and not cfg.enable_obstacle
-        and cfg.pressure_solver != "fft"
-        and diff == 0.0
-        and (not has_force
-             or (cfg.fuse_buoyancy
-                 and cfg.vorticity_confinement == 0.0
-                 and visc <= 0.0
-                 and not cfg.double_project))
-    )
-
-
 def simulate_step_3d(state: FluidState, cfg: SimConfig,
-                     jacobi_fn=None, advect_fn=None,
-                     src=None) -> FluidState:
-    """One product step.  ``jacobi_fn(p, div, iters)`` optionally overrides
-    the pressure solve — the hook the explicit halo-exchange solver
-    (parallel/halo.jacobi_3d_sharded) plugs into via ``sharded_step_fn``.
-    ``advect_fn(bs, fields, velocity, dt, obst=None)`` likewise overrides
-    advection (the per-shard kernel,
-    parallel/halo.advect_multi_3d_sharded); it receives the (possibly
-    None) obstacle mask and must implement the full per-substep obstacle
-    contract ``ops.advect._mask_and_bnd_3d`` applies.
-
-    ``src``: folded-emitter descriptor (``emitter_fold_operand``) —
-    only valid when ``emitter_folds(cfg)``; the caller skips
-    ``apply_custom_source`` and the kernels apply the emitter's add on
-    their density window loads instead (the buoyancy fold's window in
-    the self-advect kernel, and the fused projection kernel's density
-    phase).  Should a fused kernel decline at trace time (VMEM), the
-    step falls back to the equivalent full-grid XLA add — physics never
-    silently loses the source.
-    """
+                     jacobi_fn=None) -> FluidState:
+    """One product step.  ``jacobi_fn(p, div, iters, obst)`` optionally
+    overrides the pressure solve — the hook the explicit halo-exchange
+    solver (parallel/halo.jacobi_3d_sharded) plugs into via
+    ``sharded_step_fn``."""
     dt, diff, visc = cfg.effective_params()
     # Static no-obstacle specialization: passing None removes every
     # obstacle branch from the compiled program.
     obst = state.obstacles if cfg.enable_obstacle else None
     win = cfg.advect_window
-    use_pallas = _pallas_usable(cfg)
     vel = state.velocity
     density = state.density
 
-    if src is not None and (jacobi_fn is not None or advect_fn is not None):
-        raise ValueError("src folding is incompatible with solver hooks "
-                         "(sharded paths apply the emitter themselves)")
-    if src is not None and not emitter_folds(cfg):
-        raise ValueError(
-            "src (folded emitter) passed but emitter_folds(cfg) is False "
-            "— the caller must apply apply_custom_source itself for this "
-            "config"
-        )
-
     # -- body forces ----------------------------------------------------
-    # fold_buoy: defer the force into the self-advection kernel's window
-    # loads (pallas/advect.py ``buoy``) — the composition below minus the
-    # standalone XLA velocity read+write, exact up to FMA contraction
-    # (≤1 ulp on the force FMA).  Valid only when
-    # nothing acts on the velocity between the force and the advection
-    # (no vorticity/viscosity/pre-projection) and the kernel path runs.
-    has_force = cfg.buoyancy != 0.0 or cfg.gravity != 0.0
-    fold_buoy = (
-        has_force
-        and cfg.fuse_buoyancy
-        and use_pallas
-        and advect_fn is None
-        and obst is None
-        and cfg.vorticity_confinement == 0.0
-        and visc <= 0.0
-        and not cfg.double_project
-        and cfg.advection_scheme == "substep"
-        and not cfg.fuse_self_advect
-        and cfg.dtype == "float32"
-    )
-    if has_force and not fold_buoy:
+    if cfg.buoyancy != 0.0 or cfg.gravity != 0.0:
         vel = buoyancy_force(
             vel, density, dt, cfg.buoyancy, cfg.ambient_density, cfg.gravity
         )
@@ -170,34 +67,13 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
         )
 
     if cfg.double_project:
-        vel, _ = project_3d(vel, obst, cfg.jacobi_iters, use_pallas)
+        vel, _ = project_3d(vel, obst, cfg.jacobi_iters)
 
     # -- self-advection (one shared backtrace for all three components) --
-    def advect_fields(bs, fields, velocity, buoy=None):
-        if advect_fn is not None:
-            return advect_fn(bs, fields, velocity, dt, obst)
-        if use_pallas:
-            from ..pallas.advect import advect_multi_3d_pallas
-
-            if cfg.advection_scheme == "substep":
-                # substeps run entirely inside the kernel (fields stay
-                # in VMEM between sub-advections); obstacles ride along
-                # as an int8 mask window; ``buoy`` folds the body force
-                # into the self-advect window loads (fold_buoy above),
-                # and ``src`` folds the emitter into buoy's density
-                # window (the force must see post-source density)
-                return advect_multi_3d_pallas(
-                    bs, fields, velocity, dt, obst, window=win,
-                    n_sub=cfg.advect_substeps, buoy=buoy,
-                    src=src if buoy is not None else None,
-                )
-            base = lambda b_, f_, v_, d_: advect_multi_3d_pallas(
-                b_, f_, v_, d_, obst, window=win
-            )
-        else:
-            base = lambda b_, f_, v_, d_: advect_multi_3d(
-                b_, f_, v_, d_, obst, window=win
-            )
+    def advect_fields(bs, fields, velocity):
+        base = lambda b_, f_, v_, d_: advect_multi_3d(
+            b_, f_, v_, d_, obst, window=win
+        )
         if cfg.advection_scheme == "maccormack":
             from ..ops.advect import advect_maccormack_3d
 
@@ -211,139 +87,36 @@ def simulate_step_3d(state: FluidState, cfg: SimConfig,
                                      n_sub=cfg.advect_substeps)
         return base(bs, fields, velocity, dt)
 
-    # Fused-kernel gating (cfg.fuse_project_advect / cfg.fuse_self_advect):
-    # the density backtraces through the projected velocity while it is
-    # still VMEM-resident — bitwise the unfused composition.  Gated to
-    # the configs whose step dataflow the fusion preserves exactly:
-    # resident-Pallas projection and substep advection.  Velocity damping
-    # (which scales vel *between* projection and density advect) is
-    # FOLDED into the kernels as the exact storage-dtype scalar multiply
-    # after faces+mirror — the XLA composition's order — so damped
-    # configs fuse too.  A static obstacle mask is fine for the two-phase
-    # fusion (the projection folds it in as coefficient planes and the
-    # density phase slices the resident mask; b=0 has no obstacle mirror,
-    # so the contract matches any n_sub); the full-step fusion stays
-    # obstacle-free (the velocity mirror's +1-per-substep halo blows its
-    # VMEM model).  Density diffusion commutes with the projection
-    # (disjoint state), so it runs just before the fused call.
-    solve_dtype = (None if cfg.solve_dtype == "float32" else cfg.solve_dtype)
-    # The step's implicit damping factor 1/(1 + dt·k), computed in f32
-    # exactly as the XLA path below does.
-    damp = (float(1.0 / (1.0 + np.float32(dt)
-                         * np.float32(cfg.velocity_damping)))
-            if cfg.velocity_damping != 0.0 else 1.0)
-    # Density dissipation, folded the same way (a storage-dtype scalar
-    # multiply on the kernel's density out windows after faces — the XLA
-    # composition's exact order/rounding); the standalone multiply below
-    # only runs when no fused kernel applied it.
-    ddamp = (float(1.0 / (1.0 + np.float32(dt)
-                          * np.float32(cfg.density_dissipation)))
-             if cfg.density_dissipation != 0.0 else 1.0)
-    fused_density = None
-    dens_in = None
-    fused3 = None
-    fuse_ok = (
-        cfg.fuse_project_advect
-        and use_pallas
-        and jacobi_fn is None
-        and advect_fn is None
-        and cfg.pressure_solver != "fft"
-        and cfg.advection_scheme == "substep"
-    )
-    if fuse_ok:
-        dens_in = (diffuse_3d(0, density, diff, dt, obst, cfg)
-                   if diff > 0.0 else density)
-        if cfg.fuse_self_advect and obst is None:
-            # Whole hot step in ONE kernel: self-advect → project →
-            # density advect (pallas/resident.full_step_3d_resident).
-            # Returns None when VMEM-infeasible — the step then falls
-            # back to the standalone self-advection below plus the
-            # two-phase fused (or unfused) projection.
-            from ..pallas.project import full_step_3d_pallas
-
-            fused3 = full_step_3d_pallas(
-                vel, dens_in, cfg.jacobi_iters, dt,
-                window=win, n_sub=cfg.advect_substeps,
-                solve_dtype=solve_dtype,
-                sweep_block=cfg.jacobi_sweep_block,
-                damp=damp, dens_damp=ddamp,
-            )
-
-    if fused3 is None:
-        vel = advect_fields(
-            (1, 2, 3), vel, vel,
-            buoy=((density, cfg.buoyancy, cfg.ambient_density, cfg.gravity)
-                  if fold_buoy else None),
-        )
+    vel = advect_fields((1, 2, 3), vel, vel)
 
     # -- pressure projection --------------------------------------------
     if jacobi_fn is not None:
         vel, pressure = project_3d(vel, obst, cfg.jacobi_iters,
-                                   use_pallas=False, jacobi_fn=jacobi_fn)
+                                   jacobi_fn=jacobi_fn)
     elif cfg.pressure_solver == "fft":
         if cfg.enable_obstacle:
             raise ValueError("pressure_solver='fft' requires no obstacles")
         from ..ops.fft_poisson import project_3d_fft
 
         vel, pressure = project_3d_fft(vel)
-    elif use_pallas:
-        from ..pallas.project import (
-            project_3d_pallas,
-            project_advect_density_3d_pallas,
-        )
-
-        if fused3 is not None:
-            vel, pressure, fused_density = fused3
-        elif fuse_ok:
-            fused = project_advect_density_3d_pallas(
-                vel, dens_in, cfg.jacobi_iters, dt,
-                window=win, n_sub=cfg.advect_substeps,
-                solve_dtype=solve_dtype, obst=obst,
-                sweep_block=cfg.jacobi_sweep_block,
-                damp=damp, dens_damp=ddamp, src=src,
-            )
-            if fused is not None:
-                vel, pressure, fused_density = fused
-        if fused_density is None:
-            # unfused path: div / VMEM-resident (or slab) Jacobi /
-            # gradient (pallas/project.py); handles static obstacle masks
-            # on the resident kernel, falls back to XLA otherwise.
-            vel, pressure = project_3d_pallas(
-                vel, cfg.jacobi_iters, obst=obst, solve_dtype=solve_dtype,
-                sweep_block=cfg.jacobi_sweep_block,
-            )
     else:
-        vel, pressure = project_3d(vel, obst, cfg.jacobi_iters, use_pallas)
+        vel, pressure = project_3d(vel, obst, cfg.jacobi_iters)
 
     # -- velocity damping (implicit Stam-style sink; a scalar multiple
-    #    preserves the just-projected divergence-free field).  Skipped
-    #    when a fused kernel ran — it already applied the identical
-    #    storage-dtype multiply in-kernel (damp folded above). ----------
-    if cfg.velocity_damping != 0.0 and fused_density is None:
+    #    preserves the just-projected divergence-free field) -------------
+    if cfg.velocity_damping != 0.0:
         vel = vel * jnp.asarray(
             1.0 / (1.0 + np.float32(dt) * np.float32(cfg.velocity_damping)),
             vel.dtype,
         )
 
     # -- density transport ----------------------------------------------
-    if fused_density is not None:
-        density = fused_density  # advected in-kernel with the projection
-    else:
-        if src is not None:
-            # Fused kernel declined (VMEM): the emitter the caller
-            # deferred must still land — equivalent full-grid XLA add.
-            from ..scene.sources import src_field_add
-
-            density = src_field_add(density, src, 0)
-        if diff > 0.0:
-            density = diffuse_3d(0, density, diff, dt, obst, cfg)
-        density = advect_fields((0,), density[None], vel)[0]
-    if cfg.density_dissipation != 0.0 and fused_density is None:
+    if diff > 0.0:
+        density = diffuse_3d(0, density, diff, dt, obst, cfg)
+    density = advect_fields((0,), density[None], vel)[0]
+    if cfg.density_dissipation != 0.0:
         # Stam's implicit dissipation: s/(1 + dt·κ) ("Stable Fluids",
-        # density equation sink term).  When a fused kernel ran it
-        # already applied the identical storage-dtype multiply on its
-        # density out windows (dens_damp above); this standalone
-        # multiply is the unfused path's full read+write pass.
+        # density equation sink term).
         density = density * jnp.asarray(
             1.0 / (1.0 + np.float32(dt) * np.float32(cfg.density_dissipation)),
             density.dtype,

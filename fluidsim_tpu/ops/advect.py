@@ -8,8 +8,8 @@ wall cells and obstacle cells come out 0 before ``set_bnd`` runs — including
 density at obstacles (the "leave unchanged" comment at FluidSim.cs:1154 is
 dead code against a zero buffer).
 
-On TPU the bilinear/trilinear sample is a vectorized gather; the whole op
-fuses into the step program.
+The bilinear/trilinear sample is a vectorized gather; the whole op fuses
+into the step program.
 """
 
 from __future__ import annotations
@@ -116,15 +116,14 @@ def advect_3d(b: int, d0, vel, dt: float, obst=None, window: int = 0):
     backtrace and zero-buffer semantics as 2D, promoted to three axes.
     ``obst=None`` statically removes the obstacle branches.
 
-    ``window=0`` uses an explicit 8-tap gather — exact but slow on TPU
-    (HBM gathers are latency-bound).  ``window=K>0`` uses the TPU-native
-    formulation: the trilinear sample as a sum of statically-shifted
-    arrays weighted by per-cell hat functions,
+    ``window=0`` uses an explicit 8-tap gather — exact.  ``window=K>0``
+    uses a gather-free formulation: the trilinear sample as a sum of
+    statically-shifted arrays weighted by per-cell hat functions,
     ``out = Σ_{|d|≤K} wz(dz)·wy(dy)·wx(dx)·shift(d0, d)``, which is
     *mathematically identical* to the gather whenever the backtrace
     displacement is < K cells; displacement is clamped to the window (a
     CFL limiter) so the result is always well-defined.  All ops are
-    shifts/FMAs that XLA fuses — no gather, ~10× faster at 128³.
+    shifts/FMAs that XLA fuses — no gather.
     """
     if window > 0:
         return _advect_3d_window(b, d0, vel, dt, obst, window)
@@ -246,10 +245,9 @@ def advect_multi_3d(bs, fields, vel, dt: float, obst=None, window: int = 0):
         fz = frac_disp(vel[2].astype(cdt), kk)
 
         if n >= 192:
-            # Large grids: a statically unrolled (2K+1)³ sum produces an
-            # HLO big enough to crash/time out the XLA TPU compiler at
-            # 256³+.  Loop over the window with traced shifts instead —
-            # O(1) program size, same math.
+            # Large grids: loop over the window with traced shifts
+            # instead of a statically unrolled (2K+1)³ sum — O(1)
+            # program size and compile time, same math.
             w_sz = 2 * window + 1
 
             def term(idx, acc):

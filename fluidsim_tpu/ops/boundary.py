@@ -1,7 +1,7 @@
 """Boundary conditions (the reference's ``set_bnd``).
 
 The reference runs a *single-threaded* ``BoundaryJob`` between every Jacobi
-sweep (FluidSim.cs:1235-1289) — its sequential bottleneck.  On TPU the same
+sweep (FluidSim.cs:1235-1289) — its sequential bottleneck.  Here the same
 semantics become a handful of masked slice updates that XLA fuses into the
 surrounding stencil; there is no serialization.
 

@@ -1,9 +1,9 @@
-"""Spectral Poisson projection — an exact, TPU-friendly alternative to the
+"""Spectral Poisson projection — an exact alternative to the
 reference's 20-iter Jacobi pressure solve.
 
 The reference's projection (FluidSim.cs:1417-1521) under-converges: Jacobi
 damps low-frequency pressure modes slowly (and in 2D its ``c = 6`` is the
-wrong diagonal).  On TPU, FFTs are fast XLA primitives, so a closed-box
+wrong diagonal).  FFTs are fast XLA primitives, so a closed-box
 smoke solver can afford an *exact* solve.  This is the
 ``pressure_solver="fft"`` option for obstacle-free 3D scenes — not a
 parity path (the reference cannot express it).

@@ -14,8 +14,8 @@ The reference's linear algebra (all on flat 2D grids):
 * ``Diffuse`` (FluidSim.cs:740-745) runs BOTH, back to back — 40 sweeps with
   the 3D-lineage coefficient ``c = 1 + 6a`` on a 2D grid.
 
-On TPU each sweep is a fused radius-1 stencil + masked boundary update under
-one ``lax.fori_loop``; there are no buffer copies or host round trips.
+Each sweep is a fused radius-1 stencil + masked boundary update under one
+``lax.fori_loop``; there are no buffer copies or host round trips.
 """
 
 from __future__ import annotations
@@ -79,19 +79,6 @@ def lin_solve_2d(b: int, x, x0, a: float, c: float, obst, iters: int = 20):
     return jax.lax.fori_loop(0, iters, body, x, unroll=4)
 
 
-def use_2d_kernels(cfg, n: int, dtype=jnp.float32) -> bool:
-    """Whether the whole-solve-in-VMEM 2D kernel applies (TPU backend,
-    f32, not forced to XLA).  The 2D path is per-op-overhead-bound as an
-    XLA graph (160 tiny sweeps/step), so the kernel is the default."""
-    if cfg is not None and cfg.kernel_backend == "xla":
-        return False
-    if dtype != jnp.float32:
-        return False
-    from ..pallas.resident2d import resident2d_usable
-
-    return resident2d_usable(n)
-
-
 def diffuse_2d(b: int, x0, diff: float, dt: float, obst, cfg):
     """The reference ``Diffuse`` (FluidSim.cs:740-745).
 
@@ -105,14 +92,6 @@ def diffuse_2d(b: int, x0, diff: float, dt: float, obst, cfg):
     )
     c = float(np.float32(1.0) + np.float32(6.0) * np.float32(a))
     iters = cfg.jacobi_iters
-    if use_2d_kernels(cfg, n, x0.dtype):
-        from ..pallas.resident2d import lin_solve_2d_resident
-
-        x = lin_solve_2d_resident(b, x0, x0, a, c, obst, iters, smooth=True)
-        if cfg.double_diffuse:
-            x = lin_solve_2d_resident(b, x, x0, a, c, obst, iters,
-                                      smooth=False)
-        return x
     x = diffuse_smooth_2d(b, x0, a, c, obst, iters)
     if cfg.double_diffuse:
         x = lin_solve_2d(b, x, x0, a, c, obst, iters)
@@ -134,9 +113,7 @@ def jacobi_3d(b: int, x, x0, a: float, c: float, obst, iters: int,
     Each sweep is one fused XLA pass: the interior update is zero-padded
     back to full shape and ``set_bnd_3d`` rewrites the entire border from
     interior values (every border cell is covered by a face plane, so the
-    pad zeros never survive — proven by the face-pass data-flow).  This is
-    the jnp oracle path; the Pallas kernel in ``fluidsim_tpu.pallas``
-    implements the same recurrence with VMEM-resident iterations.
+    pad zeros never survive — proven by the face-pass data-flow).
     """
     in_dtype = x.dtype
     if in_dtype != jnp.float32:

@@ -22,10 +22,8 @@ from .boundary import set_bnd_2d, set_bnd_3d
 from .linsolve import lin_solve_2d, jacobi_3d
 
 
-def project_2d(vel_x, vel_y, obst, iters: int = 20, cfg=None):
-    """Returns (vel_x, vel_y, p). Arrays are ``[y, x]``.  ``cfg`` (when
-    given) enables the whole-solve-in-VMEM kernel for the pressure solve
-    (ops.linsolve.use_2d_kernels)."""
+def project_2d(vel_x, vel_y, obst, iters: int = 20):
+    """Returns (vel_x, vel_y, p). Arrays are ``[y, x]``."""
     n = vel_x.shape[0]
     nf = jnp.asarray(n, vel_x.dtype)
     core = (slice(1, -1), slice(1, -1))
@@ -42,15 +40,7 @@ def project_2d(vel_x, vel_y, obst, iters: int = 20, cfg=None):
     div = jnp.zeros_like(vel_x).at[core].set(div_int)
     div = set_bnd_2d(0, div, obst)
     p = set_bnd_2d(0, jnp.zeros_like(vel_x), obst)
-
-    from .linsolve import use_2d_kernels
-
-    if use_2d_kernels(cfg, n, vel_x.dtype) and cfg is not None:
-        from ..pallas.resident2d import lin_solve_2d_resident
-
-        p = lin_solve_2d_resident(0, p, div, 1.0, 6.0, obst, iters)
-    else:
-        p = lin_solve_2d(0, p, div, a=1.0, c=6.0, obst=obst, iters=iters)
+    p = lin_solve_2d(0, p, div, a=1.0, c=6.0, obst=obst, iters=iters)
 
     gx = 0.5 * (p[1:-1, 2:] - p[1:-1, :-2]) * nf
     gy = 0.5 * (p[2:, 1:-1] - p[:-2, 1:-1]) * nf
@@ -66,15 +56,12 @@ def project_2d(vel_x, vel_y, obst, iters: int = 20, cfg=None):
     return vel_x, vel_y, p
 
 
-def project_3d(vel, obst=None, iters: int = 20, use_pallas: bool = False,
-               jacobi_fn=None):
+def project_3d(vel, obst=None, iters: int = 20, jacobi_fn=None):
     """3D projection on a ``[z, y, x]`` grid; ``vel`` is ``(3, N, N, N)``.
 
     Same structure as 2D with the 6-neighbor divergence and ``c = 6`` —
     the coefficient the reference uses is exactly right here.
     ``obst=None`` statically removes the obstacle branches.
-    ``use_pallas`` routes the pressure solve through the VMEM-blocked
-    Pallas kernel (requires ``obst is None``).
     ``jacobi_fn(p, div, iters, obst)`` overrides the pressure solve
     entirely — the hook the explicit halo-exchange solver
     (parallel/halo.jacobi_3d_sharded) plugs into; it receives the
@@ -105,24 +92,6 @@ def project_3d(vel, obst=None, iters: int = 20, use_pallas: bool = False,
 
     if jacobi_fn is not None:
         p = jacobi_fn(p, div, iters, obst)
-    elif use_pallas and obst is None:
-        from ..pallas.jacobi import jacobi_3d_pallas
-
-        p = jacobi_3d_pallas(0, p, div, a=1.0, c=6.0, iters=iters)
-    elif use_pallas:
-        from ..pallas.resident import (
-            jacobi_3d_resident,
-            resident_obstacle_fits,
-        )
-
-        # Compiled-Mosaic obstacle solves need the spill-aware model
-        # (round 5 — the f32 obstacle sweep OOMs VMEM at 128³ on
-        # today's toolchain; pallas/resident.resident_obstacle_fits).
-        # This branch is only reached on real-compile paths.
-        if resident_obstacle_fits(n, 4):
-            p = jacobi_3d_resident(0, p, div, 1.0, 6.0, iters, obst=obst)
-        else:
-            p = jacobi_3d(0, p, div, a=1.0, c=6.0, obst=obst, iters=iters)
     else:
         p = jacobi_3d(0, p, div, a=1.0, c=6.0, obst=obst, iters=iters)
 

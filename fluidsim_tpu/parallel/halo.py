@@ -1,22 +1,20 @@
-"""Explicit halo exchange over ICI (``shard_map`` + ``ppermute``).
+"""Explicit halo exchange between devices (``shard_map`` + ``ppermute``).
 
 The slab-decomposed Jacobi sweep needs each shard's top/bottom neighbor
 plane every iteration.  This module implements the exchange explicitly,
 two ways:
 
 * ``block_iters=1`` — one single-plane ``ppermute`` up and down per sweep
-  (the minimal-traffic schedule; latency-bound on real ICI at one
-  exchange per sweep).
+  (the minimal-traffic schedule; latency-bound at one exchange per
+  sweep).
 * ``block_iters=T>1`` — **communication-avoiding deep halo**: exchange a
   T-plane halo once per T sweeps.  A T-deep halo covers the dependency
   cone of T Jacobi sweeps exactly (each sweep's stencil erodes one plane
   of halo validity), so the result is *identical* to the per-sweep
-  schedule — T× fewer ICI round-trips for 2·T·N² exchanged bytes per
+  schedule — T× fewer round-trips for 2·T·N² exchanged bytes per
   round (same total bytes, amortized latency) at the cost of
   O(T²·N²/lz) redundant halo compute.  This is the classic
-  communication-avoiding stencil trade, and the schedule the multi-chip
-  Pallas kernels (RDMA edge-slab sends overlapped with interior sweeps)
-  drop into.
+  communication-avoiding stencil trade.
 
 All solver functions here run **inside** ``shard_map`` over a 1-D mesh
 axis; the global z extent is ``n_dev · local_z``.
@@ -38,7 +36,7 @@ def halo_exchange_z(x_local, axis_name: str = "z", depth: int = 1,
     ``below[j,y,x]`` holds the last ``depth`` z-planes of the shard below
     (zeros at the global bottom); ``above`` the first ``depth`` planes of
     the shard above (zeros at the global top).  One ``ppermute`` in each
-    direction — 2·depth·N²·4 bytes per call over ICI.
+    direction — 2·depth·N²·4 bytes per call.
 
     ``axis``: position of the sharded z axis (0 for a plain (lz, N, N)
     field, 1 for channel-stacked (C, lz, N, N) fields — one ``ppermute``
@@ -63,129 +61,6 @@ def halo_exchange_z(x_local, axis_name: str = "z", depth: int = 1,
     below = jax.lax.ppermute(top_slab, axis_name, up)      # from rank-1
     above = jax.lax.ppermute(bot_slab, axis_name, down)    # from rank+1
     return below, above
-
-
-def advect_multi_3d_sharded(bs, fields, vel, dt: float, mesh: Mesh,
-                            axis_name: str = "z", window: int = 1,
-                            n_sub: int = 1, interpret: bool = False,
-                            transport: str = "ppermute", obst=None):
-    """Slab-sharded windowed substepped advection with explicit halo
-    exchange and per-shard Pallas compute
-    (``pallas.halo_kernel.advect_ext_pallas``).
-
-    ``fields``: (F, N, N, N) global (sharded on axis 1), ``vel``:
-    (3, N, N, N).  The backtrace displacement is clamped to ``window``
-    cells per substep, so a ``window·n_sub``-plane halo covers every
-    sample a shard's cells can reach — one exchange of fields+velocity
-    per step, zero during the substeps (which run in VMEM).  Matches
-    ``ops.advect.advect_substep_3d`` on the full grid.
-
-    ``obst`` (round 5): optional (N, N, N) obstacle mask, sharded like a
-    field — enables the full in-kernel obstacle contract (zero + faces +
-    velocity mirror per substep; FluidSim.cs:1148-1156 + :1261-1287
-    semantics).  The mirror reads ±1 neighbors per substep, so the
-    exchange depth grows to ``n_sub·(window+1)`` and the mask's own edge
-    slabs ride the same exchange (int8 on the ppermute path; one f32
-    channel on the rdma path — the mask is static data, but exchanging
-    it per call keeps the zero-XLA-collectives property and costs 2h
-    planes).
-
-    ``transport="rdma"`` performs that one exchange inside a Pallas
-    kernel as inter-chip remote DMAs (``halo_exchange_rdma`` — fields,
-    velocity, and mask ride one call) instead of XLA ``ppermute``:
-    bitwise-identical extended arrays, zero XLA collectives.
-    """
-    if transport not in ("ppermute", "rdma"):
-        raise ValueError(
-            f"transport must be ppermute/rdma, got {transport!r}"
-        )
-    n = fields.shape[-1]
-    n_shards = mesh.shape[axis_name]
-    lz_global = fields.shape[1] // n_shards
-    has_obst = obst is not None
-    h = n_sub * (window + 1) if has_obst else window * n_sub
-    if h > lz_global:
-        kind = ("n_sub·(window+1), obstacle mirror" if has_obst
-                else "window·n_sub")
-        raise ValueError(
-            f"advect halo {h} ({kind}) exceeds local slab depth "
-            f"{lz_global}"
-        )
-    from ..pallas.halo_kernel import _pick_ext_advect
-
-    # Velocity self-advection: object identity must be decided HERE —
-    # shard_map binds its inputs as distinct parameters, so the identity
-    # would be lost inside.  One exchange + the kernel's aliased
-    # single-DMA path (pallas.halo_kernel ``self_adv``).
-    self_adv = fields is vel and tuple(bs) == (1, 2, 3) \
-        and fields.shape[0] == 3
-    if _pick_ext_advect(lz_global + 2 * h, n, fields.shape[0], h,
-                        self_adv, has_obst) is None:
-        raise ValueError(
-            f"no VMEM-feasible advect window for (lz={lz_global}, "
-            f"halo={h}, n={n})"
-        )
-    fspec = P(None, axis_name, None, None)
-    mspec = P(axis_name, None, None)
-
-    def body(f_local, v_local, m_local=None):
-        from ..pallas.halo_kernel import advect_ext_pallas
-
-        rank = jax.lax.axis_index(axis_name)
-        lz = v_local.shape[1]
-        m_ext = None
-        if transport == "rdma":
-            from ..pallas.halo_kernel import halo_exchange_rdma
-
-            arrays = ([v_local] if f_local is v_local
-                      else [f_local, v_local])
-            if m_local is not None:
-                # The mask rides the same kernel as one f32 channel
-                # (the exchange kernel's comm buffers are homogeneous
-                # f32); cast back to int8 for the advect kernel.
-                arrays = arrays + [m_local[None].astype(jnp.float32)]
-            exts = halo_exchange_rdma(
-                arrays, h, axis_name, interpret=interpret,
-                vma=frozenset({axis_name}),
-            )
-            if m_local is not None:
-                m_ext = exts[-1][0].astype(jnp.int8)
-                exts = exts[:-1]
-            f_ext, v_ext = (exts[0], exts[0]) if f_local is v_local else exts
-        else:
-            vb, va = halo_exchange_z(v_local, axis_name, h, axis=1)
-            v_ext = jnp.concatenate([vb, v_local, va], axis=1)
-            if f_local is v_local:
-                f_ext = v_ext
-            else:
-                fb, fa = halo_exchange_z(f_local, axis_name, h, axis=1)
-                f_ext = jnp.concatenate([fb, f_local, fa], axis=1)
-            if m_local is not None:
-                m8 = m_local.astype(jnp.int8)
-                mb, ma = halo_exchange_z(m8, axis_name, h, axis=0)
-                m_ext = jnp.concatenate([mb, m8, ma], axis=0)
-        out = advect_ext_pallas(
-            tuple(bs), f_ext, v_ext, n, dt, rank * lz - h,
-            window=window, n_sub=n_sub, obst_ext=m_ext,
-            interpret=interpret, vma=frozenset({axis_name}),
-        )
-        return jax.lax.slice_in_dim(out, h, h + lz, axis=1)
-
-    if self_adv:
-        in_specs = (fspec,) + ((mspec,) if has_obst else ())
-        run = functools.partial(
-            jax.shard_map, mesh=mesh, in_specs=in_specs, out_specs=fspec,
-            check_vma=False,  # pallas interpret mixes varying axes
-        )(lambda v_local, *m: body(v_local, v_local, *m))
-        return run(vel, *((obst,) if has_obst else ()))
-
-    in_specs = (fspec, fspec) + ((mspec,) if has_obst else ())
-    run = functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=in_specs, out_specs=fspec,
-        check_vma=False,  # pallas interpret mixes varying axes (cf. body)
-    )(body)
-    return run(fields, vel, *((obst,) if has_obst else ()))
 
 
 def _ext_sweep(b, xp, x0_ext, a, c, rank, n_dev, halo: int, lz: int,
@@ -259,8 +134,7 @@ def _ext_faces(b, out, rank, n_dev, halo: int, lz: int):
 
 def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int,
                       mesh: Mesh, axis_name: str = "z", b: int = 0,
-                      block_iters: int = 1, backend: str = "auto",
-                      interpret: bool = False, obst=None):
+                      block_iters: int = 1, obst=None):
     """Slab-sharded fixed-rhs Jacobi with explicit halo exchange.
     ``x``/``x0`` are global ``[z, y, x]`` arrays (sharded or not); the
     result matches the single-device ``jacobi_3d`` for any
@@ -272,35 +146,15 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int,
     ``obst``: optional global boolean obstacle mask (``b == 0`` only —
     the scalar contract has no obstacle mirror): obstacle cells copy the
     previous iterate, exactly ``ops.linsolve.jacobi_3d``'s rule.  The
-    mask's own T-deep halo is exchanged once (it is round-invariant);
-    the Pallas/RDMA backends carry it as an int8 coefficient window
-    (the resident kernel's formulation — pallas/resident.py).
+    mask's own T-deep halo is exchanged once (it is round-invariant).
     ``block_iters`` (T) sets the exchange cadence: T-plane halos every T
     sweeps instead of 1-plane halos every sweep.  Requires
-    ``iters % T == 0`` and T ≤ the local slab depth.
-
-    ``backend``: per-shard compute for the T sweeps between exchanges.
-    ``"xla"`` streams the extended slab through HBM every sweep
-    (``_ext_sweep``); ``"pallas"`` runs all T sweeps in VMEM windows
-    (``pallas.halo_kernel.jacobi_ext_pallas`` — kernel-grade local
-    compute, 1-ulp-class ``·1/c`` vs ``/c`` difference); ``"rdma"``
-    additionally fuses the halo exchange INTO the kernel as inter-chip
-    RDMA (``jacobi_ext_rdma``: ``make_async_remote_copy`` of the edge
-    slabs between VMEM comm buffers, barrier-synchronized) so steady-
-    state rounds issue zero XLA collectives — identical values to the
-    pallas path; ``"auto"`` picks pallas when a TPU backend is live and
-    a window fits, else xla (never rdma: it is opt-in until validated
-    on real multi-chip hardware).  ``interpret`` runs the pallas/rdma
-    kernels in the (TPU-semantics) interpreter — the only way to
-    exercise the rdma path without a real multi-chip TPU.
+    ``iters % T == 0`` and T ≤ the local slab depth.  Each shard runs its
+    T sweeps on the extended slab (``_ext_sweep``).
     """
     T = int(block_iters)
     if iters % T:
         raise ValueError(f"iters={iters} not divisible by block_iters={T}")
-    if backend not in ("auto", "xla", "pallas", "rdma"):
-        raise ValueError(
-            f"backend must be auto/xla/pallas/rdma, got {backend!r}"
-        )
     if obst is not None and b != 0:
         raise ValueError(
             "jacobi_3d_sharded: obst requires b == 0 (the scalar set_bnd "
@@ -314,60 +168,10 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int,
             f"block_iters={T} exceeds the local slab depth {lz_global}"
         )
     spec = P(axis_name, None, None)
-
-    use_pallas = False
-    use_rdma = False
-    if backend in ("auto", "pallas", "rdma"):
-        from ..pallas.halo_kernel import _pick_ext_block, rdma_comm_bytes
-        from ..pallas.jacobi import pallas_supported
-
-        n = x.shape[-1]
-        # T=1 gives the kernel path nothing to amortize (one sweep per
-        # kernel = XLA-equivalent HBM traffic) and, because rounds are
-        # Python-unrolled, would inline `iters` pallas_calls — a
-        # compile-time blowup.  The kernel path is for the
-        # communication-avoiding cadence (T ≥ 2).
-        deep_enough = T >= 2
-        lane_ok = interpret or n % 128 == 0
-        extra = rdma_comm_bytes(T, n) if backend == "rdma" else 0
-        # Obstacles add an int8 mask window + one live f32 coefficient
-        # window-equivalent to the kernel's footprint.
-        extra_w = 1.25 if obst is not None else 0.0
-        fits = _pick_ext_block(lz_global + 2 * T, n, T,
-                               extra_bytes=extra,
-                               extra_windows=extra_w) is not None
-        if backend in ("pallas", "rdma"):
-            if not deep_enough:
-                raise ValueError(
-                    f"backend={backend!r} requires block_iters >= 2 (the "
-                    "kernel amortizes T sweeps per HBM pass; at T=1 it "
-                    "has nothing to amortize)"
-                )
-            if not lane_ok:
-                raise ValueError(
-                    f"backend={backend!r} requires the grid's lane dim to "
-                    f"be 128-aligned, got n={n}"
-                )
-            if not fits:
-                raise ValueError(
-                    f"backend={backend!r}: no VMEM-feasible window for "
-                    f"(lz={lz_global}, T={T}, n={n})"
-                )
-        supported = interpret or pallas_supported()
-        use_rdma = backend == "rdma"
-        use_pallas = (not use_rdma and deep_enough and lane_ok and fits
-                      and (supported or backend == "pallas"))
-
     in_specs = (spec, spec) + ((spec,) if obst is not None else ())
 
     @functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=in_specs, out_specs=spec,
-        # The interpret-mode pallas kernel's internal dynamic_slices mix
-        # varying and unvarying operands, which the vma checker rejects
-        # (its own error message suggests this workaround); the XLA path
-        # keeps the check.
-        check_vma=not (use_pallas or use_rdma),
+        jax.shard_map, mesh=mesh, in_specs=in_specs, out_specs=spec,
     )
     def run(x_local, x0_local, *rest):
         obst_local = rest[0] if rest else None
@@ -375,76 +179,18 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int,
         n_dev = jax.lax.axis_size(axis_name)
         lz = x_local.shape[0]
 
-        # The mask is round-invariant: exchange its T-deep halo ONCE.
-        # int8 transport (bool collectives/DMAs are not supported on
-        # real TPUs; the halo planes past the global edges come back 0 =
+        # The mask is round-invariant: exchange its T-deep halo ONCE, as
+        # int8 (the halo planes past the global edges come back 0 =
         # fluid, which only touches erosion-garbage planes).
-        obst_i8 = None
-        obst_ext_i8 = None
+        obst_ext = None
         if obst_local is not None:
             obst_i8 = obst_local.astype(jnp.int8)
-            if not use_rdma:
-                ob, oa = halo_exchange_z(obst_i8, axis_name, T)
-                obst_ext_i8 = jnp.concatenate([ob, obst_i8, oa], axis=0)
-
-        if use_rdma:
-            from ..pallas.halo_kernel import (
-                NO_WALL,
-                halo_exchange_rdma,
-                jacobi_ext_rdma,
-            )
-
-            wall_lo = jnp.where(rank == 0, T, NO_WALL)
-            wall_hi = jnp.where(rank == n_dev - 1, T + lz - 1, NO_WALL)
-            # Same input contract as the pallas path (set_bnd-consistent
-            # wall faces from sweep 1).
-            x_local = _ext_faces(b, x_local, rank, n_dev, 0, lz)
-            # Prime the first round's halo and build the rhs's (and
-            # mask's) extended arrays in ONE RDMA exchange kernel (no
-            # XLA collectives anywhere in the solve); every subsequent
-            # round's halo arrives via the round kernel's own in-kernel
-            # RDMA.
-            prime = [x_local[None], x0_local[None]]
-            if obst_i8 is not None:
-                prime.append(obst_i8[None])
-            exts = halo_exchange_rdma(
-                prime, T, axis_name,
-                interpret=interpret, vma=frozenset({axis_name}),
-            )
-            ext, x0_ext = exts[0][0], exts[1][0]
-            if obst_i8 is not None:
-                obst_ext_i8 = exts[2][0]
-            for _ in range(iters // T):
-                ext = jacobi_ext_rdma(ext, x0_ext, a, c, T,
-                                      wall_lo, wall_hi, b=b,
-                                      axis_name=axis_name,
-                                      interpret=interpret,
-                                      vma=frozenset({axis_name}),
-                                      obst_ext=obst_ext_i8)
-            return jax.lax.slice_in_dim(ext, T, T + lz, axis=0)
+            ob, oa = halo_exchange_z(obst_i8, axis_name, T)
+            obst_ext = jnp.concatenate([ob, obst_i8, oa], axis=0) != 0
 
         # The rhs never changes: exchange its halo once for all rounds.
         x0b, x0a = halo_exchange_z(x0_local, axis_name, T)
         x0_ext = jnp.concatenate([x0b, x0_local, x0a], axis=0)
-
-        if use_pallas:
-            from ..pallas.halo_kernel import jacobi_ext_pallas
-
-            from ..pallas.halo_kernel import NO_WALL
-
-            # Traced wall-face positions: the global z=0 face sits at
-            # extended index T on rank 0; z=N−1 at T+lz−1 on the last
-            # rank; NO_WALL (matches no zg) elsewhere.
-            wall_lo = jnp.where(rank == 0, T, NO_WALL)
-            wall_hi = jnp.where(rank == n_dev - 1, T + lz - 1, NO_WALL)
-            # Input contract (same as the single-chip kernel): the
-            # corrected reads assume set_bnd-consistent wall faces from
-            # sweep 1, where the XLA path reads the raw input faces once.
-            # Normalize (idempotent on consistent inputs — every solver
-            # call site provides them).
-            x_local = _ext_faces(b, x_local, rank, n_dev, 0, lz)
-
-        obst_ext = (obst_ext_i8 != 0) if obst_ext_i8 is not None else None
 
         def round_body(_, xl):
             below, above = halo_exchange_z(xl, axis_name, T)
@@ -457,39 +203,6 @@ def jacobi_3d_sharded(x, x0, a: float, c: float, iters: int,
             xp = jax.lax.fori_loop(0, T, sweep, xp)
             return jax.lax.slice_in_dim(xp, T, T + lz, axis=0)
 
-        if use_pallas:
-            # Persistent extended carry: the loop state stays the
-            # (lz+2T)-plane extended array and each round refreshes only
-            # the 2T halo planes in place — slicing back to local and
-            # re-concatenating would copy the full slab through HBM
-            # twice per round (measured ~half the solve time on a
-            # 512-wide shard).  Rounds are Python-unrolled: a
-            # pallas_call inside lax.fori_loop inside shard_map trips a
-            # lowering-cache KeyError ('closed_call' + varying mesh
-            # axes) in current JAX; the round count is small (iters/T)
-            # and the kernel dominates compile time anyway.
-            below, above = halo_exchange_z(x_local, axis_name, T)
-            ext = jnp.concatenate([below, x_local, above], axis=0)
-            n_rounds = iters // T
-            for r in range(n_rounds):
-                # The kernel materializes the wall faces in-window (same
-                # z→y→x healing order as _ext_faces) before shipping, so
-                # its output is face-consistent as-is.
-                ext = jacobi_ext_pallas(ext, x0_ext, a, c, T,
-                                        wall_lo, wall_hi, b=b,
-                                        interpret=interpret,
-                                        vma=frozenset({axis_name}),
-                                        obst_ext=obst_ext_i8)
-                if r + 1 < n_rounds:
-                    local = jax.lax.slice_in_dim(ext, T, T + lz, axis=0)
-                    below, above = halo_exchange_z(local, axis_name, T)
-                    ext = jax.lax.dynamic_update_slice_in_dim(
-                        ext, below, 0, axis=0
-                    )
-                    ext = jax.lax.dynamic_update_slice_in_dim(
-                        ext, above, T + lz, axis=0
-                    )
-            return jax.lax.slice_in_dim(ext, T, T + lz, axis=0)
         return jax.lax.fori_loop(0, iters // T, round_body, x_local)
 
     args = (x, x0) + ((obst,) if obst is not None else ())

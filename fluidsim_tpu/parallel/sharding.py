@@ -1,23 +1,21 @@
-"""Spatial domain decomposition over a TPU mesh.
+"""Spatial domain decomposition over a device mesh.
 
 The reference is single-process/single-node; its only "communication" is
-managed↔native buffer copies (SURVEY.md §2, L1).  The TPU-native scaling
-axis (BASELINE config 5: 512³ on v5e-8) is a **slab decomposition**: the
-voxel grid is sharded along z (axis 0 of ``[z, y, x]`` fields) across a 1-D
-``jax.sharding.Mesh``, and every stencil's neighbor access compiles to an
-ICI halo exchange.
+managed↔native buffer copies (SURVEY.md §2, L1).  The scaling axis here
+(BASELINE config 5: the 512³ grid over several devices) is a **slab
+decomposition**: the voxel grid is sharded along z (axis 0 of ``[z, y, x]``
+fields) across a 1-D ``jax.sharding.Mesh``, and every stencil's neighbor
+access compiles to a halo exchange between neighboring devices.
 
 Two paths:
 
 * this module — ``pjit``-style: jit the *unchanged* solver with sharded
   inputs/outputs and let XLA insert the collectives for the shifted slices.
   Zero solver changes; the compiler pipelines the edge-plane exchanges.
-* ``halo.py`` — explicit ``shard_map`` + ``ppermute`` edge-slab exchange,
-  the path the multi-chip Pallas kernels plug into.
+* ``halo.py`` — explicit ``shard_map`` + ``ppermute`` edge-slab exchange.
 
-z is the **leading** axis precisely so the sharded dimension is not one of
-the TPU tile dimensions (sublane/lane are y, x) — slab boundaries then cut
-between tiles, never through them.
+z is the **leading** axis, so each shard's slab is one contiguous block of
+memory and the exchanged edge planes are contiguous too.
 """
 
 from __future__ import annotations
@@ -63,9 +61,7 @@ def shard_state(state: FluidState, mesh: Mesh, axis_name: str = "z") -> FluidSta
 
 def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z",
                     n_substeps: int = 1, with_source: bool = True,
-                    halo: str = "auto", halo_block_iters: int = 1,
-                    halo_backend: str = "auto",
-                    pallas_interpret: bool = False):
+                    halo: str = "auto", halo_block_iters: int = 1):
     """Compile the full 3D step for a slab-sharded state.
 
     ``halo`` selects the stencil-communication strategy for the pressure
@@ -74,32 +70,17 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z",
 
     * ``"auto"`` — the solver body is *identical* to the single-device one;
       XLA's auto-partitioner lowers the stencil shifts on sharded arrays to
-      ICI collective-permutes of the single-plane halos.
+      collective-permutes of the single-plane halos.
     * ``"explicit"`` — the pressure solve routes through
       ``parallel.halo.jacobi_3d_sharded``: hand-written ``shard_map`` +
       per-sweep ``ppermute`` edge-plane exchange.  Same numerics (tested).
       Obstacle scenes are supported: the solve carries the mask as a
       coefficient volume (copy-through; the mask's own halo is exchanged
-      once per solve), while advection falls back to the auto-partitioned
-      XLA path (the per-shard advect kernel is obstacle-free).
-      ``halo_block_iters=T>1``
-      switches the exchange cadence to the communication-avoiding
-      schedule (T-deep halos every T sweeps — identical results, T×
-      fewer ICI round-trips; see ``parallel.halo``).  ``halo_backend``
-      selects the per-shard compute between exchanges: ``"pallas"`` runs
-      all T sweeps in VMEM windows (7.3× over the XLA sweeps on a
-      512-wide shard, measured single-rank on-chip), ``"rdma"``
-      additionally performs every halo transport — Jacobi rounds,
-      solve priming/rhs, advection fields+velocity — as in-kernel
-      inter-chip remote DMAs (the full step issues zero XLA
-      collectives; bitwise-equal to ``"pallas"``, tested in
-      ``tests/test_rdma.py``),
-      ``"xla"`` streams HBM per sweep, ``"auto"`` picks pallas when
-      feasible on a TPU backend.
-      With pallas it also routes advection through the per-shard advect
-      kernel (``parallel.halo.advect_multi_3d_sharded``) when the
-      scheme/shape allow.  ``pallas_interpret`` runs the per-shard
-      kernels in the Pallas interpreter (CPU-mesh testing only).
+      once per solve), while advection stays on the auto-partitioned
+      XLA path.  ``halo_block_iters=T>1`` switches the exchange cadence
+      to the communication-avoiding schedule (T-deep halos every T
+      sweeps — identical results, T× fewer round-trips; see
+      ``parallel.halo``).
 
     ``n_substeps > 1`` rolls steps into one program via ``lax.scan`` so
     halo exchanges pipeline with compute.
@@ -130,67 +111,7 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z",
             return jacobi_3d_sharded(p, div, 1.0, 6.0, iters, mesh,
                                      axis_name, b=0,
                                      block_iters=halo_block_iters,
-                                     backend=halo_backend,
-                                     interpret=pallas_interpret,
                                      obst=obst)
-
-    advect_fn = None
-    # Obstacle scenes run the per-shard kernel too (round 5): the full
-    # in-kernel obstacle contract (zero + faces + velocity mirror per
-    # substep) ports from the single-chip kernel; the mirror's ±1 reads
-    # grow the exchange depth to n_sub·(window+1) and the mask's edge
-    # slabs ride the same halo exchange (parallel.halo).
-    if halo == "explicit" and halo_backend != "xla":
-        from ..pallas.halo_kernel import _pick_ext_advect
-        from ..pallas.jacobi import pallas_supported
-
-        n = cfg.current_size
-        n_sub = (cfg.advect_substeps
-                 if cfg.advection_scheme == "substep" else 1)
-        has_obst = bool(cfg.enable_obstacle)
-        h = (n_sub * (cfg.advect_window + 1) if has_obst
-             else cfg.advect_window * n_sub)
-        lz = n // mesh.shape[axis_name]
-        feasible = (
-            cfg.advection_scheme in ("semi_lagrangian", "substep")
-            and cfg.advect_window >= 1
-            and h <= lz
-            and (pallas_interpret or n % 128 == 0)
-            and _pick_ext_advect(lz + 2 * h, n, 3, h,
-                                 has_obst=has_obst) is not None
-        )
-        if feasible and (pallas_supported() or pallas_interpret
-                         or halo_backend in ("pallas", "rdma")):
-            from .halo import advect_multi_3d_sharded
-
-            def advect_fn(bs, fields, velocity, d_t, obst=None):
-                return advect_multi_3d_sharded(
-                    bs, fields, velocity, float(d_t), mesh, axis_name,
-                    window=cfg.advect_window, n_sub=n_sub,
-                    interpret=pallas_interpret,
-                    transport=("rdma" if halo_backend == "rdma"
-                               else "ppermute"),
-                    obst=obst,
-                )
-
-    # On a multi-shard mesh the auto-partitioned body must NOT dispatch
-    # the single-chip Pallas kernels: XLA has no partitioning rule for a
-    # pallas_call, so it would all-gather the full volume to every
-    # device, run the kernel replicated, and slice — silently destroying
-    # the sharding.  (CPU-mesh tests never see this: pallas_supported()
-    # is False there.)  Kernel-grade per-shard compute routes through
-    # shard_map instead: halo="explicit" + halo_backend="pallas" for the
-    # pressure solve and advection (parallel.halo).  A 1-device mesh has
-    # no such hazard and keeps the single-chip kernels.
-    if mesh.shape[axis_name] > 1 and cfg.kernel_backend != "xla":
-        if cfg.kernel_backend == "pallas":
-            raise ValueError(
-                "kernel_backend='pallas' (single-chip kernels) cannot "
-                "run on a multi-shard mesh — XLA would all-gather the "
-                "full volume to every device.  Use halo='explicit', "
-                "halo_backend='pallas' for per-shard kernels."
-            )
-        cfg = cfg.replace(kernel_backend="xla")
 
     sh = state_sharding(mesh, axis_name)
     dt = np.float32(cfg.effective_params()[0])
@@ -202,8 +123,7 @@ def sharded_step_fn(cfg: SimConfig, mesh: Mesh, axis_name: str = "z",
                 state.density, state.velocity, cfg, t
             )
             state = state.replace(density=density, velocity=velocity)
-        return simulate_step_3d(state, cfg, jacobi_fn=jacobi_fn,
-                                advect_fn=advect_fn), None
+        return simulate_step_3d(state, cfg, jacobi_fn=jacobi_fn), None
 
     def body(state):
         if n_substeps == 1:

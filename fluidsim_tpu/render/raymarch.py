@@ -5,7 +5,7 @@ Emission–absorption integration along axis-aligned rays through the
 density volume.  The camera looks down −z of the ``[z, y, x]`` grid
 (orthographic), so each image pixel (y, x) integrates over z — the march
 is a single ``lax.scan``/``associative_scan``-free cumulative pass over z
-planes, fully fused on device: step + render never leaves the TPU.
+planes, fully fused on device: step + render never leaves the device.
 
 Transfer function: density → (color, extinction) via the 2D colormap
 machinery (density-based mode) or a constant emission tint; obstacles are

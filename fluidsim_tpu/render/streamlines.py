@@ -163,7 +163,8 @@ def rasterize_streamlines(segments, cfg: SimConfig,
 
     if base_frame is None:
         return overlay
-    base = np.ascontiguousarray(np.asarray(base_frame), np.float32)
+    # A fresh copy: ``np.asarray`` of a device array is a read-only view.
+    base = np.array(base_frame, np.float32, order="C")
     if _NATIVE is not None:
         _NATIVE.composite_over(
             base.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),

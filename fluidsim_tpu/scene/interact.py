@@ -1,7 +1,7 @@
 """Interaction forces — the mouse-drag math as a scriptable API.
 
 Reference: ``Update()``'s drag handling (FluidSim.cs:414-436) and
-``AddForceToArea`` (FluidSim.cs:452-483).  The TPU engine has no mouse; the
+``AddForceToArea`` (FluidSim.cs:452-483).  The engine has no mouse; the
 same math is exposed as pure functions the host driver can call with any
 pointer trajectory (interactive viewer, replay file, or test script).
 """

@@ -40,8 +40,7 @@ class SourceParams(NamedTuple):
     The reference repositions the emitter per frame with shift-drag
     (FluidSim.cs:397-402) — a per-frame operation, so these must not be
     baked into the compiled program as constants (a reposition would
-    otherwise retrace/recompile the whole step, seconds per mouse event on
-    TPU).  Structural switches (pulsing, emits_velocity, enabled) stay
+    otherwise retrace/recompile the whole step, seconds per mouse event).  Structural switches (pulsing, emits_velocity, enabled) stay
     static in ``SimConfig``.
     """
 
@@ -130,97 +129,6 @@ def _apply_one(density, vel, cfg: SimConfig, t, params: SourceParams, *,
             )
 
     return density, vel
-
-
-def emitter_foldable(cfg: SimConfig) -> bool:
-    """True when the main emitter's density add can be deferred into the
-    Pallas kernels' density window loads (``src`` operand of
-    ``models.stable3d.simulate_step_3d``): a single 3D density-only
-    emitter on f32 fields.  The step-path half of the gate (kernel
-    arrangement) is ``stable3d.emitter_folds``."""
-    return (
-        cfg.ndim == 3
-        and cfg.enable_custom_source
-        and not cfg.extra_sources
-        and not cfg.source_emits_velocity
-        and cfg.dtype == "float32"
-    )
-
-
-def emitter_fold_operand(cfg: SimConfig, t,
-                         params: SourceParams = None) -> jnp.ndarray:
-    """The (5,) f32 emitter descriptor ``[px, py, pz, strength, radius]``
-    (center in CELLS, effective pulsed+scaled strength, radius in cells)
-    consumed by the kernels' in-window source add (``src_field_add``).
-
-    Scalar-for-scalar the same f32 computations as ``_apply_one`` —
-    pulse scale, resolution scaling, ``pos[i]·n`` — so the folded add is
-    the composed one up to XLA FMA-contraction clustering (≤ a few
-    ulps).  ``params`` traced (the live-engine path) or None (presets:
-    everything folds to constants at trace time)."""
-    if params is None:
-        params = source_params(cfg)
-    if cfg.pulse_clock == "wall":
-        t = params.pulse_t
-    nf = np.float32(cfg.current_size)
-    res_mult = np.float32(cfg.resolution_multiplier)
-    radius_cells = jnp.asarray(params.radius, jnp.float32) * res_mult
-    scale = (pulse_scale(t, cfg.source_pulse_rate)
-             if cfg.source_pulsing else np.float32(1.0))
-    eff_strength = (jnp.asarray(params.strength, jnp.float32)
-                    * scale * res_mult)
-    pos = jnp.asarray(params.position, jnp.float32)
-    return jnp.stack([
-        pos[0] * nf, pos[1] * nf, pos[2] * nf,
-        jnp.asarray(eff_strength, jnp.float32), radius_cells,
-    ])
-
-
-def src_window_hit(src, z0, nz, y0=None, ny=None):
-    """Scalar bool: does the window ``[z0, z0+nz) × [y0, y0+ny)`` (global
-    rows; y optional) intersect the emitter ball of ``src``?  Outside the
-    ball the add is exactly ``+0.0`` — skipping whole windows under
-    ``pl.when(hit)`` saves the falloff math (iotas + sqrt over every
-    window cell) on the ~¾ of windows the ball never touches, which is
-    what makes the fold a net win on-chip (ungated it measured 15 µs/step
-    SLOWER than the XLA pass it replaces)."""
-    f32 = jnp.float32
-    px, py, pz, _, radius = (src[i] for i in range(5))
-    z0f = jnp.asarray(z0, f32)
-    hit = (z0f <= pz + radius) & (z0f + np.float32(nz - 1) >= pz - radius)
-    if y0 is not None:
-        y0f = jnp.asarray(y0, f32)
-        hit &= ((y0f <= py + radius)
-                & (y0f + np.float32(ny - 1) >= py - radius))
-    return hit
-
-
-def src_field_add(vals, src, z0, y0=0, x0=0):
-    """Add the ``emitter_fold_operand`` source to an f32 ``[z, y, x]``
-    window whose global origin is ``(z0, y0, x0)`` (traced or static).
-
-    Pure jnp, so it runs identically inside a Pallas kernel body (on a
-    VMEM window, with ``src`` an SMEM ref — indexing scalars out of
-    either works) and on a full XLA array (the fallback path).  The
-    distance/falloff expression replays ``_apply_one``'s f32 dataflow —
-    ``sqrt(((x²)+(y²))+(z²))``, ``where(d ≤ r, 1 − d/r, 0)``,
-    ``strength·falloff`` — so folded and composed steps match up to FMA
-    contraction."""
-    f32 = jnp.float32
-    i32 = jnp.int32
-    shape = vals.shape
-    # i32 iota + cast: Mosaic's tpu.iota is integer-only (f32 iota fails
-    # kernel verification); cell indices ≤ grid size are exact in f32.
-    zi = jnp.asarray(z0, f32) + jax.lax.broadcasted_iota(
-        i32, shape, 0).astype(f32)
-    yi = jnp.asarray(y0, f32) + jax.lax.broadcasted_iota(
-        i32, shape, 1).astype(f32)
-    xi = jnp.asarray(x0, f32) + jax.lax.broadcasted_iota(
-        i32, shape, 2).astype(f32)
-    px, py, pz, strength, radius = (src[i] for i in range(5))
-    dist = jnp.sqrt(((xi - px) ** 2 + (yi - py) ** 2) + (zi - pz) ** 2)
-    falloff = jnp.where(dist <= radius, 1.0 - dist / radius, 0.0)
-    return vals + strength * falloff
 
 
 def apply_custom_source(density, vel, cfg: SimConfig, t,

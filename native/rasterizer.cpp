@@ -4,7 +4,7 @@
 // thickness-expanded Bresenham walk (DrawLineSegmentsToTexture /
 // DrawBresenhamLine, Assets/Scripts/FluidSim.cs:1765-1849) because
 // scattered pixel writes race under its job system.  This is the
-// native-runtime equivalent for the TPU engine: the hot voxel path stays
+// native-runtime equivalent for this engine: the hot voxel path stays
 // on device; the final 2D overlay pass — inherently scatter-heavy and
 // tiny — runs here at memory speed instead of in Python.
 //

@@ -1,4 +1,4 @@
-"""Independent NumPy oracle for the 3D solver (VERDICT r1 item 4).
+"""Independent NumPy oracle for the 3D solver.
 
 A from-scratch float32 NumPy transliteration of the *documented* 3D
 generalization of the reference's 2D rules (SURVEY.md §2.2-2.6 promoted to
@@ -19,8 +19,8 @@ six neighbors; the reference itself is 2D-only — FluidSim.cs:1034-1289):
 Written against the *spec*, not the JAX code: boundary faces use explicit
 slice assignment (not masked selects), advection uses fancy-indexed
 gathers (not shifted-window sums), sweeps use np.pad-free interior views.
-This catches consistent-but-wrong bugs that JAX↔Pallas self-comparison
-cannot (they share a formulation family).
+This catches consistent-but-wrong bugs that comparing two JAX
+formulations with each other cannot (they share a formulation family).
 """
 
 from __future__ import annotations

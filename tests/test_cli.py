@@ -117,7 +117,7 @@ def test_build_engine_pulse_clock():
     from fluidsim_tpu.cli import _build_engine
 
     args = argparse.Namespace(
-        preset="smoke32", config=None, size=None, backend=None,
+        preset="smoke32", config=None, size=None,
         dtype=None, nan_guard=False, pulse_clock="wall",
     )
     eng = _build_engine(args)
@@ -132,7 +132,7 @@ def test_build_engine_advect_substeps_override():
     from fluidsim_tpu.cli import _build_engine
 
     args = argparse.Namespace(
-        preset="bench128", config=None, size=32, backend=None,
+        preset="bench128", config=None, size=32,
         dtype=None, nan_guard=False, advect_substeps=1,
     )
     eng = _build_engine(args)
@@ -142,7 +142,7 @@ def test_build_engine_advect_substeps_override():
 
 def test_cli_bench_mesh(capsys):
     """`bench --mesh N` measures the slab-sharded step (BASELINE config 5's
-    reproducible command, VERDICT r2 item 5).  The test mesh reuses the
+    reproducible command).  The test mesh reuses the
     conftest's 8 virtual CPU devices."""
     lines = run_cli(
         capsys, "bench", "--preset", "smoke32", "--mesh", "8",

@@ -60,12 +60,6 @@ def _random_cfg(rng: random.Random) -> SimConfig:
     )
     if scheme == "substep":
         kwargs["advect_substeps"] = rng.choice((1, 2, 3))
-        # Fusion flags must be inert no-ops wherever their kernels don't
-        # apply (CPU, obstacles+full-step, damping, …) — fuzz them on.
-        if rng.random() < 0.4:
-            kwargs["fuse_project_advect"] = True
-            kwargs["fuse_self_advect"] = rng.random() < 0.5
-    kwargs["jacobi_sweep_block"] = rng.choice((1, 1, 2, 4))
     if ndim == 3:
         kwargs.update(
             buoyancy=rng.choice((0.0, 1.0)),

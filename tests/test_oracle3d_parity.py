@@ -4,8 +4,8 @@ BASELINE.json: "density fields matching the reference solver at 64^3 to
 float32 tolerance".  The reference is 2D-only, so the 3D contract is the
 documented generalization (oracle3d.py docstring); every op and the full
 step are validated here at 64³ against a from-scratch NumPy
-transliteration — catching consistent-but-wrong bugs that XLA↔Pallas
-self-comparison cannot (VERDICT r1 item 4).
+transliteration — catching consistent-but-wrong bugs that comparing two
+JAX formulations with each other cannot.
 """
 
 import numpy as np
@@ -89,7 +89,7 @@ def test_advect_3d_gather_matches_oracle_64(with_obst):
 
 
 def test_advect_3d_windowed_matches_oracle_64():
-    """The TPU-native windowed formulation vs the oracle's gather with the
+    """The gather-free windowed formulation vs the oracle's gather with the
     same CFL clamp — mathematically identical, different op order."""
     fields = jnp.stack([
         jnp.asarray(oracle3d.set_bnd_3d(b, rand(50 + b, scale=1.5), None))
@@ -146,7 +146,7 @@ def plume_cfg():
 
 
 def test_step_parity_resync_64():
-    """Per-step re-sync gate (VERDICT r1 items 4/7): every step starts both
+    """Per-step re-sync gate: every step starts both
     implementations from the SAME state, so agreement must be at float32
     op-reordering level (~1e-5 of scale), with no chaotic accumulation."""
     cfg = plume_cfg()

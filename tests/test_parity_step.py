@@ -113,7 +113,7 @@ def test_step_parity_resolution_multiplier():
 
 
 def test_step_parity_resync_64():
-    """The 64-grid gate with per-step re-sync (VERDICT r1 items 4/7): each
+    """The 64-grid gate with per-step re-sync: each
     step starts engine and oracle from the SAME state, so the comparison
     isolates genuine formula mismatches from chaotic semi-Lagrangian
     drift — agreement must be at float32 op-reordering level."""

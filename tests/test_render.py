@@ -1,6 +1,10 @@
 """Render layer tests: colormap modes, streamlines (native + NumPy
 rasterizer agreement), raymarcher."""
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 
@@ -96,9 +100,23 @@ def test_streamline_segments():
     assert (segs2[:, 0] < 0).all()
 
 
-def test_native_rasterizer_matches_numpy():
+@pytest.fixture
+def native_rasterizer():
+    """The native rasterizer, built with ``make -C native`` when missing."""
+    from fluidsim_tpu.render import streamlines
+
     if not native_rasterizer_available():
-        pytest.skip("native rasterizer not built")
+        if shutil.which("make") is None or shutil.which("g++") is None:
+            pytest.skip("no make/g++ to build native/librasterizer.so")
+        native = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "native")
+        subprocess.run(["make", "-C", native], check=True,
+                       capture_output=True)
+        streamlines._NATIVE = streamlines._load_native()
+    assert native_rasterizer_available()
+
+
+def test_native_rasterizer_matches_numpy(native_rasterizer):
     n = 48
     cfg = cfg2d(size=48, streamline_thickness=2.0,
                 streamline_color=(1, 0, 0, 1))

@@ -84,100 +84,6 @@ def test_deep_halo_validation():
         jacobi_3d_sharded(x, x, 1.0, 6.0, 20, mesh, block_iters=5)
 
 
-@pytest.mark.parametrize("b", [0, 1, 2, 3])
-def test_sharded_jacobi_pallas_backend_matches_xla(b):
-    """The per-shard Pallas kernel (T sweeps in VMEM windows between
-    halo exchanges, traced wall positions) agrees with the XLA
-    extended-slab sweep — wall rule, halo erosion, and deep-halo cadence
-    included.  Input faces are set_bnd-consistent (the kernel's input
-    contract, which every solver call site provides); measured bitwise
-    equal there, tolerance kept for the ·1/c-vs-/c 1-ulp class.  Two
-    rounds (iters=4, T=2) keep the interpreter runtime bounded while
-    covering round chaining."""
-    from fluidsim_tpu.ops.boundary import set_bnd_3d
-
-    n = 32
-    x = set_bnd_3d(
-        b, jax.random.normal(jax.random.PRNGKey(4), (n, n, n), jnp.float32),
-        None,
-    )
-    x0 = jax.random.normal(jax.random.PRNGKey(5), (n, n, n), jnp.float32)
-    mesh = make_mesh(jax.devices()[:8])
-
-    ref = jacobi_3d_sharded(x, x0, 1.0, 6.0, 4, mesh, b=b,
-                            block_iters=2, backend="xla")
-    ker = jacobi_3d_sharded(x, x0, 1.0, 6.0, 4, mesh, b=b,
-                            block_iters=2, backend="pallas",
-                            interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(ker), np.asarray(ref), rtol=2e-6, atol=2e-6
-    )
-
-    single = jacobi_3d(b, x, x0, 1.0, 6.0, None, iters=4)
-    np.testing.assert_allclose(
-        np.asarray(ker), np.asarray(single), rtol=1e-5, atol=1e-6
-    )
-
-
-@pytest.mark.parametrize("bs,F", [((1, 2, 3), 3), ((0,), 1)])
-def test_sharded_advect_pallas_matches_single_chip(bs, F):
-    """Per-shard windowed substepped advection (halo exchange + extended
-    -slab kernel with a traced global-z offset) equals the single-chip
-    advect kernel — which is itself equivalence-tested against the XLA
-    substep path.  Tolerance: the two kernels compile with different
-    window shapes, so XLA's fusion/FMA choices reassociate the two-tap
-    arithmetic — ~0.1% of cells differ at ≲1.3e-5, scattered across ALL
-    planes (not shard boundaries, which would indicate a halo bug)."""
-    from fluidsim_tpu.pallas.advect import advect_multi_3d_pallas
-    from fluidsim_tpu.parallel.halo import advect_multi_3d_sharded
-
-    n = 32
-    fields = jax.random.normal(jax.random.PRNGKey(6), (F, n, n, n),
-                               jnp.float32)
-    vel = 0.1 * jax.random.normal(jax.random.PRNGKey(7), (3, n, n, n),
-                                  jnp.float32)
-    mesh = make_mesh(jax.devices()[:8])
-
-    out_sh = advect_multi_3d_sharded(bs, fields, vel, 0.05, mesh,
-                                     window=1, n_sub=2, interpret=True)
-    out_ref = advect_multi_3d_pallas(bs, fields, vel, 0.05, None,
-                                     window=1, n_sub=2, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(out_sh), np.asarray(out_ref), rtol=5e-4, atol=5e-5
-    )
-
-    from fluidsim_tpu.ops.advect import advect_substep_3d
-
-    out_xla = advect_substep_3d(bs, fields, vel, 0.05, None, window=1,
-                                n_sub=2)
-    np.testing.assert_allclose(
-        np.asarray(out_sh), np.asarray(out_xla), rtol=5e-4, atol=5e-5
-    )
-
-
-@pytest.mark.parametrize("transport", ["ppermute", "rdma"])
-def test_sharded_self_advect_aliasing(transport):
-    """Velocity self-advection through the sharded path (fields IS vel,
-    object identity) exchanges the velocity ONCE and takes the kernel's
-    aliased single-DMA path — bitwise-equal to the unaliased two-operand
-    path (fresh array copy)."""
-    from fluidsim_tpu.parallel.halo import advect_multi_3d_sharded
-
-    n = 32
-    vel = 0.3 * jax.random.normal(jax.random.PRNGKey(11), (3, n, n, n),
-                                  jnp.float32)
-    mesh = make_mesh(jax.devices()[:8])
-    aliased = advect_multi_3d_sharded((1, 2, 3), vel, vel, 0.02, mesh,
-                                      window=1, n_sub=2, interpret=True,
-                                      transport=transport)
-    unaliased = advect_multi_3d_sharded((1, 2, 3), jnp.array(vel), vel,
-                                        0.02, mesh, window=1, n_sub=2,
-                                        interpret=True,
-                                        transport=transport)
-    np.testing.assert_array_equal(np.asarray(aliased),
-                                  np.asarray(unaliased))
-
-
 def _ball_mask(n):
     """A centered solid ball (analog of the vortex128 obstacle)."""
     idx = np.indices((n, n, n))
@@ -185,120 +91,9 @@ def _ball_mask(n):
     return jnp.asarray(r2 < (n / 5.0) ** 2)
 
 
-@pytest.mark.parametrize("transport", ["ppermute", "rdma"])
-@pytest.mark.parametrize("bs,F", [((1, 2, 3), 3), ((0,), 1)])
-def test_sharded_advect_obstacle_matches_xla(bs, F, transport):
-    """Per-shard advect kernel WITH an obstacle mask (round 5, VERDICT
-    r4 item 6): the full in-kernel contract — fresh-zero walls/obstacle
-    cells, set_bnd faces, velocity mirror — over the n_sub·(window+1)
-    halo equals the XLA substep oracle and the single-chip obstacle
-    kernel.  The mask's edge slabs ride the same halo exchange (int8 on
-    ppermute, an f32 channel on rdma).  Contract: FluidSim.cs:1148-1156
-    + :1261-1287."""
-    from fluidsim_tpu.ops.advect import advect_substep_3d
-    from fluidsim_tpu.pallas.advect import advect_multi_3d_pallas
-    from fluidsim_tpu.parallel.halo import advect_multi_3d_sharded
-
-    n = 32
-    obst = _ball_mask(n)
-    fields = jax.random.normal(jax.random.PRNGKey(13), (F, n, n, n),
-                               jnp.float32)
-    vel = 0.1 * jax.random.normal(jax.random.PRNGKey(14), (3, n, n, n),
-                                  jnp.float32)
-    # 4 shards (lz=8) so the obstacle halo h = n_sub·(window+1) = 4 stays
-    # strictly below lz: at h == lz the Pallas TPU *interpreter* grinds
-    # unboundedly in its buffer allocator (all device threads stuck in
-    # _allocate_buffer; the ppermute path and real product shapes — h=4
-    # vs lz=64 at 512³/8 — are unaffected).
-    mesh = make_mesh(jax.devices()[:4])
-
-    out_sh = advect_multi_3d_sharded(bs, fields, vel, 0.05, mesh,
-                                     window=1, n_sub=2, interpret=True,
-                                     transport=transport, obst=obst)
-    out_xla = advect_substep_3d(bs, fields, vel, 0.05, obst, window=1,
-                                n_sub=2)
-    np.testing.assert_allclose(
-        np.asarray(out_sh), np.asarray(out_xla), rtol=5e-4, atol=5e-5
-    )
-    out_1chip = advect_multi_3d_pallas(bs, fields, vel, 0.05, obst,
-                                       window=1, n_sub=2, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(out_sh), np.asarray(out_1chip), rtol=5e-4, atol=5e-5
-    )
-    # Obstacle cells end exactly zero for velocity components (mirror of
-    # all-solid neighborhoods) per the oracle; spot-check the solid core.
-    if bs == (1, 2, 3):
-        o = np.asarray(obst)
-        core = o & np.roll(o, 1, 0) & np.roll(o, -1, 0) \
-            & np.roll(o, 1, 1) & np.roll(o, -1, 1) \
-            & np.roll(o, 1, 2) & np.roll(o, -1, 2)
-        core[0] = core[-1] = False
-        core[:, 0] = core[:, -1] = False
-        core[:, :, 0] = core[:, :, -1] = False
-        got = np.asarray(out_sh)
-        for c in range(3):
-            assert np.all(got[c][core] == 0.0)
-
-
-def test_sharded_step_obstacle_pallas_advect_matches_auto():
-    """The FULL product step on an obstacle scene with the per-shard
-    Pallas advect kernel engaged (halo='explicit', pallas interpret on
-    the CPU mesh) equals the auto-partitioned path — closing the last
-    kernel-grade gap on the explicit obstacle path (VERDICT r4 item 6
-    done-criterion)."""
-    # n_sub=2 (vortex128 ships 3): obstacle halo h = 2·(1+1) = 4 < lz=8
-    # on the 4-shard mesh — the kernel path's feasibility gate
-    # (sharding.py) requires h ≤ lz, and the interpreter grinds at
-    # h == lz (see test_sharded_advect_obstacle_matches_xla).
-    cfg = cfg3d(advect_window=1, advect_substeps=2)
-    assert cfg.enable_obstacle
-    # The per-shard kernel must actually be feasible for this geometry —
-    # otherwise the explicit path silently falls back to XLA advection
-    # and this test stops covering the kernel.
-    from fluidsim_tpu.pallas.halo_kernel import _pick_ext_advect
-
-    lz, h = 32 // 4, 2 * (1 + 1)
-    assert h <= lz
-    assert _pick_ext_advect(lz + 2 * h, 32, 3, h, True, True) is not None
-    obst = jnp.asarray(build_obstacle_mask(cfg))
-    state = fs.zeros_state(cfg, obstacles=obst)
-
-    mesh = make_mesh(jax.devices()[:4])
-    s_auto = shard_state(state, mesh)
-    s_exp = shard_state(state, mesh)
-    step_auto = sharded_step_fn(cfg, mesh, halo="auto")
-    step_exp = sharded_step_fn(cfg, mesh, halo="explicit",
-                               halo_block_iters=2,
-                               halo_backend="pallas",
-                               pallas_interpret=True)
-    for _ in range(3):
-        s_auto = step_auto(s_auto)
-        s_exp = step_exp(s_exp)
-
-    np.testing.assert_allclose(
-        np.asarray(s_exp.density), np.asarray(s_auto.density),
-        rtol=1e-5, atol=1e-5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(s_exp.velocity), np.asarray(s_auto.velocity),
-        rtol=1e-5, atol=1e-4,
-    )
-    # Interior obstacle cells hold exactly zero velocity after the step.
-    o = np.asarray(obst)
-    core = o & np.roll(o, 1, 0) & np.roll(o, -1, 0) \
-        & np.roll(o, 1, 1) & np.roll(o, -1, 1) \
-        & np.roll(o, 1, 2) & np.roll(o, -1, 2)
-    core[0] = core[-1] = False
-    core[:, 0] = core[:, -1] = False
-    core[:, :, 0] = core[:, :, -1] = False
-    got = np.asarray(s_exp.velocity)
-    for c in range(3):
-        assert np.all(got[c][core] == 0.0)
-
-
 def test_sharded_jacobi_obstacle_matches_single_device():
-    """Obstacle copy-through on the sharded XLA backend (the solve's
-    coefficient-volume contract, VERDICT r2 item 4) equals the
+    """Obstacle copy-through on the sharded solve (the solve's
+    coefficient-volume contract) equals the
     single-device jacobi_3d with the same mask — per-sweep and deep-halo
     cadences."""
     n = 32
@@ -324,38 +119,11 @@ def test_sharded_jacobi_obstacle_requires_b0():
                           obst=_ball_mask(32))
 
 
-def test_sharded_jacobi_obstacle_pallas_matches_xla():
-    """The per-shard Pallas kernel's coefficient-volume obstacle path
-    (int8 mask window expanded once per window — the resident kernel's
-    formulation ported per VERDICT r2 item 4) agrees with the sharded
-    XLA copy-through sweep.  Input contract: zero in solids (the
-    pressure solve's invariant — p enters as set_bnd_3d(0, zeros))."""
-    from fluidsim_tpu.ops.boundary import set_bnd_3d
-
-    n = 32
-    obst = _ball_mask(n)
-    x = jax.random.normal(jax.random.PRNGKey(10), (n, n, n), jnp.float32)
-    x = set_bnd_3d(0, jnp.where(obst, 0.0, x), obst)
-    x0 = jax.random.normal(jax.random.PRNGKey(12), (n, n, n), jnp.float32)
-    mesh = make_mesh(jax.devices()[:8])
-
-    ref = jacobi_3d_sharded(x, x0, 1.0, 6.0, 4, mesh, b=0,
-                            block_iters=2, backend="xla", obst=obst)
-    ker = jacobi_3d_sharded(x, x0, 1.0, 6.0, 4, mesh, b=0,
-                            block_iters=2, backend="pallas",
-                            interpret=True, obst=obst)
-    np.testing.assert_allclose(
-        np.asarray(ker), np.asarray(ref), rtol=2e-6, atol=2e-6
-    )
-    # Solids hold exactly zero on both paths.
-    assert float(jnp.abs(jnp.where(obst, ker, 0.0)).max()) == 0.0
-
-
 def test_sharded_step_explicit_obstacle_matches_auto():
     """The FULL product step on an obstacle scene (vortex-class config)
     through halo='explicit' — pressure solve with the mask as a
     copy-through coefficient, advection on the auto-partitioned XLA
-    path — equals the auto path (VERDICT r2 item 4 done-criterion)."""
+    path — equals the auto path."""
     cfg = cfg3d()
     assert cfg.enable_obstacle
     obst = jnp.asarray(build_obstacle_mask(cfg))
@@ -379,29 +147,6 @@ def test_sharded_step_explicit_obstacle_matches_auto():
         np.asarray(s_exp.velocity), np.asarray(s_auto.velocity),
         rtol=1e-5, atol=1e-4,
     )
-
-
-def test_sharded_jacobi_pallas_backend_validation():
-    n = 32
-    x = jnp.zeros((n, n, n), jnp.float32)
-    mesh = make_mesh(jax.devices()[:8])
-    with pytest.raises(ValueError, match="backend"):
-        jacobi_3d_sharded(x, x, 1.0, 6.0, 20, mesh, backend="cuda")
-    # T=1 gives the kernel nothing to amortize and would Python-unroll
-    # `iters` pallas_calls — must be rejected, not silently compiled.
-    with pytest.raises(ValueError, match="block_iters >= 2"):
-        jacobi_3d_sharded(x, x, 1.0, 6.0, 20, mesh, block_iters=1,
-                          backend="pallas", interpret=True)
-
-
-def test_sharded_step_rejects_single_chip_pallas_on_multishard():
-    """kernel_backend='pallas' (single-chip kernels) on a multi-shard
-    mesh would make XLA all-gather the full volume to every device —
-    must raise, not silently run replicated."""
-    cfg = cfg3d(enable_obstacle=False).replace(kernel_backend="pallas")
-    mesh = make_mesh(jax.devices()[:8])
-    with pytest.raises(ValueError, match="all-gather"):
-        sharded_step_fn(cfg, mesh)
 
 
 def test_halo_exchange_rejects_deep_halo():
@@ -465,40 +210,6 @@ def test_sharded_step_explicit_deep_halo_matches_auto():
     )
 
 
-def test_sharded_step_pallas_kernels_match_auto():
-    """The FULL product step with kernel-grade per-shard compute
-    (explicit halo + pallas jacobi AND pallas advect, interpret mode)
-    matches the auto-partitioned XLA path.  Tolerances allow the advect
-    kernel's window-shape-dependent XLA reassociation (≲1e-5/cell/step,
-    see test_sharded_advect_pallas_matches_single_chip) scaled by the
-    emitter's field magnitudes over 3 steps."""
-    cfg = cfg3d(enable_obstacle=False, advect_window=1)
-    state = fs.zeros_state(cfg)
-
-    mesh = make_mesh(jax.devices()[:8])
-    s_auto = shard_state(state, mesh)
-    s_ker = shard_state(state, mesh)
-    step_auto = sharded_step_fn(cfg, mesh, halo="auto")
-    step_ker = sharded_step_fn(cfg, mesh, halo="explicit",
-                               halo_block_iters=2,
-                               halo_backend="pallas",
-                               pallas_interpret=True)
-    for _ in range(3):
-        s_auto = step_auto(s_auto)
-        s_ker = step_ker(s_ker)
-
-    scale = float(np.abs(np.asarray(s_auto.density)).max())
-    np.testing.assert_allclose(
-        np.asarray(s_ker.density), np.asarray(s_auto.density),
-        rtol=1e-4, atol=1e-4 * scale,
-    )
-    vscale = float(np.abs(np.asarray(s_auto.velocity)).max())
-    np.testing.assert_allclose(
-        np.asarray(s_ker.velocity), np.asarray(s_auto.velocity),
-        rtol=1e-4, atol=1e-4 * vscale,
-    )
-
-
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
 def test_sharded_step_matches_single_device(n_dev):
     cfg = cfg3d()
@@ -538,7 +249,7 @@ def test_sharded_step_matches_single_device(n_dev):
 
 def test_sharded_step_explicit_halo_matches_auto():
     """The product step with halo='explicit' (shard_map + per-sweep
-    ppermute pressure solve, VERDICT r1 item 6) equals the XLA
+    ppermute pressure solve) equals the XLA
     auto-partitioned path and the single-device step."""
     cfg = cfg3d(enable_obstacle=False)
     state = fs.zeros_state(cfg)

@@ -290,35 +290,6 @@ def test_substep_scheme_in_step():
     assert float(eng.state.density.sum()) > 0
 
 
-def test_step_self_advection_object_identity(monkeypatch):
-    """The product step must pass the SAME array object as fields and
-    velocity for the velocity self-advection — that object identity is
-    what triggers the Pallas kernel's aliased single-DMA path
-    (pallas/advect.py ``self_adv``).  Guards against a refactor that
-    copies/re-stacks the velocity before advecting it."""
-    import fluidsim_tpu as fs
-    import fluidsim_tpu.models.stable3d as S
-
-    seen = []
-    real = S.advect_multi_3d
-
-    def spy(bs, fields, vel, dt, obst, window):
-        seen.append((tuple(bs), fields is vel))
-        return real(bs, fields, vel, dt, obst, window=window)
-
-    monkeypatch.setattr(
-        S, "advect_multi_3d",
-        lambda bs, f, v, d, o, window: spy(bs, f, v, d, o, window),
-    )
-    cfg = fs.get_preset("smoke32")
-    eng = Engine(cfg)
-    eng.step(1)
-    vel_calls = [ident for bs, ident in seen if bs == (1, 2, 3)]
-    den_calls = [ident for bs, ident in seen if bs == (0,)]
-    assert vel_calls and all(vel_calls)       # self-advect: fields IS vel
-    assert den_calls and not any(den_calls)   # density: distinct operand
-
-
 def test_density_dissipation_exact_decay():
     """Stam's implicit sink: with zero velocity (advection = identity in
     the interior) interior density scales by exactly 1/(1+dt·κ) per step."""

@@ -1,6 +1,6 @@
 """Measure the advection CFL trajectory of a preset on CPU.
 
-Usage:  PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python tools/cfl_probe.py \
+Usage:  JAX_PLATFORMS=cpu python tools/cfl_probe.py \
             [preset] [steps]
 
 Reports, every 100 steps, the running max of the per-axis backtrace
@@ -13,15 +13,17 @@ two-tap advect kernel clamps per-substep displacement to 1 cell, so
   * 1 < max_disp <= 2  -> n_sub=2 covers the envelope without clamping.
   * max_disp > n_sub   -> the scheme clamps (CFL-limited, still stable).
 
-Run on CPU with kernel_backend='xla' — the CFL trajectory is a property
-of the physics, not the kernels.
+The CFL trajectory is a property of the physics, so the CPU gives the
+same answer as the GPU.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +39,7 @@ def main() -> None:
     total = int(sys.argv[2]) if len(sys.argv) > 2 else 3000
     chunk = 100
 
-    cfg = fs.get_preset(preset).replace(kernel_backend="xla")
+    cfg = fs.get_preset(preset)
     dt = np.float32(cfg.effective_params()[0])
     n = cfg.current_size
     # ops/advect.py backtrace scale for one full dt.

@@ -7,14 +7,16 @@ Measured anchor: (dt=0.002, kv=3) -> steady 1.88 cells, run_max 2.05
 so the reference's single semi-Lagrangian backtrace (n_sub=1, K=1) is
 exact — never clamped.
 
-PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python tools/scan_bench_scene.py
+JAX_PLATFORMS=cpu python tools/scan_bench_scene.py
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +43,7 @@ CHUNK = 100
 
 def run(ts: float, kv: float, buoy: float) -> float:
     cfg = fs.get_preset("bench128").replace(
-        kernel_backend="xla", time_step=ts, velocity_damping=kv,
+        time_step=ts, velocity_damping=kv,
         buoyancy=buoy, **BASE
     )
     dt = np.float32(cfg.effective_params()[0])

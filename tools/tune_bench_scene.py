@@ -6,14 +6,16 @@ steps.  The goal: steady-state max backtrace displacement ~0.7-0.9 cells
 (the reference's single semi-Lagrangian backtrace is then exact — no CFL
 clamping) with mass/velocity plateauing instead of diverging.
 
-PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python tools/tune_bench_scene.py
+JAX_PLATFORMS=cpu python tools/tune_bench_scene.py
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +38,6 @@ CHUNK = 50
 
 def run(buoy, strength, kd, kv) -> None:
     cfg = fs.get_preset("bench128").replace(
-        kernel_backend="xla",
         buoyancy=buoy,
         source_strength=strength,
         density_dissipation=kd,

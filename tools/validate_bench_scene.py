@@ -5,14 +5,16 @@ per-axis backtrace displacement <= 1 cell (so the single-substep
 reference backtrace is exact, never clamped) and that mass/velocity
 plateau (bounded steady state).
 
-PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python tools/validate_bench_scene.py [steps]
+JAX_PLATFORMS=cpu python tools/validate_bench_scene.py [steps]
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -43,9 +45,7 @@ CANDIDATE = dict(
 def main() -> None:
     total = int(sys.argv[1]) if len(sys.argv) > 1 else 1500
     chunk = 100
-    cfg = fs.get_preset("bench128").replace(
-        kernel_backend="xla", **CANDIDATE
-    )
+    cfg = fs.get_preset("bench128").replace(**CANDIDATE)
     dt = np.float32(cfg.effective_params()[0])
     n = cfg.current_size
     dt0 = dt * (n - 2)
